@@ -1,0 +1,144 @@
+"""Native host engine: builds and wraps the repository's csrc/ sources.
+
+The same C++ as gridpp_tpu's native engine (csrc/gridpp_native.cpp and
+csrc/gridpp_kernels.cpp), compiled with g++ on first use into this
+package's own build directory (see _build.py). The library holds the
+cell-hash spatial index and `pair_rho_host`, whose rho bits make the
+canonical shortlist (ops/canonical.py) identical to gridpp_tpu's. When no
+compiler is available the callers fall back to scipy and numpy, as
+gridpp_tpu's do.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+from .._build import build_shared
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "csrc")
+_SRCS = [os.path.join(_CSRC, "gridpp_native.cpp"),
+         os.path.join(_CSRC, "gridpp_kernels.cpp")]
+
+
+def _build() -> str | None:
+    if not all(os.path.exists(s) for s in _SRCS):
+        return None
+    try:
+        return build_shared(
+            "gridpp_native", _SRCS,
+            lambda out: ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+                         "-pthread", "-o", out] + _SRCS, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        return None
+
+
+def get_lib():
+    """The loaded native library, or None when unavailable."""
+    global _lib, _tried
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        so = _build()
+        if so is None:
+            return None
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError:
+            return None
+        c_p = ctypes.c_void_p
+        c_i64 = ctypes.c_int64
+        c_i32 = ctypes.c_int32
+        lib.index_build.restype = c_p
+        lib.index_build.argtypes = [c_p, c_i64, ctypes.c_double]
+        lib.index_free.argtypes = [c_p]
+        lib.index_nearest.argtypes = [c_p, c_p, c_i64, c_p]
+        lib.index_knearest.argtypes = [c_p, c_p, c_i64, c_i32, c_p, c_p]
+        lib.index_radius_count.argtypes = [c_p, c_p, c_i64,
+                                           ctypes.c_double, c_p]
+        lib.pair_rho_host.argtypes = (
+            [c_p] * 9 + [c_i64] + [c_p] * 5 + [c_p, c_p, c_i64]
+            + [c_i32] + [c_p])
+        _lib = lib
+        return _lib
+
+
+class NativeIndex:
+    """ctypes wrapper over the cell-hash index."""
+
+    def __init__(self, xyz: np.ndarray):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native engine unavailable")
+        self._lib = lib
+        self._xyz = np.ascontiguousarray(xyz, dtype=np.float64)
+        self._handle = lib.index_build(_ptr(self._xyz), self._xyz.shape[0],
+                                       0.0)
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.index_free(self._handle)
+            self._handle = None
+
+    def nearest(self, q: np.ndarray) -> np.ndarray:
+        q = np.ascontiguousarray(q, dtype=np.float64)
+        out = np.empty(q.shape[0], dtype=np.int32)
+        self._lib.index_nearest(self._handle, _ptr(q), q.shape[0], _ptr(out))
+        return out
+
+    def knearest(self, q: np.ndarray, k: int):
+        q = np.ascontiguousarray(q, dtype=np.float64)
+        nq = q.shape[0]
+        idx = np.empty((nq, k), dtype=np.int32)
+        dist = np.empty((nq, k), dtype=np.float64)
+        self._lib.index_knearest(self._handle, _ptr(q), nq, np.int32(k),
+                                 _ptr(idx), _ptr(dist))
+        return idx, dist
+
+    def radius_count(self, q: np.ndarray, radius: float) -> np.ndarray:
+        q = np.ascontiguousarray(q, dtype=np.float64)
+        out = np.empty(q.shape[0], dtype=np.int32)
+        self._lib.index_radius_count(self._handle, _ptr(q), q.shape[0],
+                                     float(radius), _ptr(out))
+        return out
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _f32c(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
+def pair_rho_host(gfx, ofx, cand, mask, kernel_type):
+    """Canonical pair-rho over explicit candidate lists (csrc
+    pair_rho_host): the exact bits the native OI solvers' select_topk
+    computes. gfx: per-gridpoint f32 fields x,y,z,elev,laf,h,v,w,loc;
+    ofx: per-obs x,y,z,elev,laf. cand/mask: (n, K). Returns (n, K) f32
+    rho (0 where masked out) or None when unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = gfx["x"].shape[0]
+    cand = np.ascontiguousarray(cand, np.int32)
+    mask = np.ascontiguousarray(mask, np.uint8)
+    kpad = cand.shape[1] if cand.ndim == 2 else 0
+    rho = np.empty((n, kpad), np.float32)
+    garrs = [_f32c(gfx[k]) for k in ("x", "y", "z", "elev", "laf", "h",
+                                     "v", "w", "loc")]
+    oarrs = [_f32c(ofx[k]) for k in ("x", "y", "z", "elev", "laf")]
+    lib.pair_rho_host(
+        *[_ptr(a) for a in garrs], n,
+        *[_ptr(a) for a in oarrs],
+        _ptr(cand), _ptr(mask), kpad, int(kernel_type), _ptr(rho))
+    return rho
