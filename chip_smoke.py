@@ -1,25 +1,42 @@
-"""Smoke run of gridpp_tpu_torch's serving path on one CUDA card.
+"""Smoke run of gridpp_tpu_torch's serving and neighbourhood-statistics
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. In order it:
 1. requires a CUDA card (there is no CPU path) and prints its name and
    power limit; TF32 is switched off for matmul and cuDNN;
-2. builds the kernels (K1, csrc/neighbourhood_mean.cu) and the native host
+2. builds the kernels K1-K5 (csrc/*.cu, one nvcc per source, all started
+   together; K5 rides in K1's and K2's libraries) and the native host
    library, and prints the build times and the compiler's resource report;
-3. holds K1 against its plain PyTorch twin on the card (rtol 1e-5,
-   atol 1e-4) for Mean, Sum and Count at 2000 x 2000 with and without 10%
-   NaN, at small edge shapes and on a batched input, and times both at
-   2000 x 2000, h=7;
-4. builds Pipeline at the benchmark configuration (2000 x 2000 grid, 10,000
-   obs, BarnesStructure(10 km), max_points=10, neighbourhood Mean h=7,
-   ratios 0.1, seed 0) on the card and prints the host set-up time;
-5. runs cycles of the fast, general and resolve paths on distinct inputs,
-   plus one cycle with a third of the obs missing, and checks: finite
-   output, general == resolve bit for bit, fast within 1e-3 of general,
-   and one K1 launch per cycle; prints each path's median cycle time;
-6. runs a 256 x 256 cut of the same problem through the whole slice on the
-   card and on the CPU (plain twins) and requires max|d| <= 1e-3.
+3. holds every kernel against its plain PyTorch version on the card, on
+   K1's cases (2000 x 2000 with 0% and 10% NaN, small edge shapes, a
+   batched (3, 256, 300)): K1 (Mean/Sum/Count) rtol 1e-5, atol 1e-4; K2
+   (Min/Max) equality; K3 (Std/Variance) rtol 2e-5, atol 2e-3; K4
+   (quantile_fast) rtol/atol 1e-5 at q in {0, 0.25, 0.5, 0.9, 1}, equality
+   on exact cdf ties, all NaN for a NaN q; K5 (members) at 2000 x 2000 x 10,
+   h=7, rtol 1e-5, atol 1e-4 for Mean/Sum/Count and equality for Min/Max,
+   against its plain version and against K1/K2 on each member;
+4. times each kernel and its plain version by CUDA events at full width:
+   K1/K2/K3 at 2000 x 2000, h=7; K4 on a uniform [0, 1) 2000 x 2000 field,
+   h=7, q=0.5, thresholds linspace(0, 1, 11) (tests/benchmark.py:65-67,
+   94-95); K5 at 2000 x 2000 x 10, beside 10 launches of K1;
+5. the serving path: builds Pipeline at the benchmark configuration
+   (2000 x 2000 grid, 10,000 obs, BarnesStructure(10 km), max_points=10,
+   neighbourhood Mean h=7, ratios 0.1, seed 0) on the card, runs cycles of
+   the fast, general and resolve paths on distinct inputs plus one cycle
+   with a third of the obs missing, and checks: finite output, general ==
+   resolve bit for bit, fast within 1e-3 of general, one K1 launch per
+   cycle; prints each path's median cycle time;
+6. the neighbourhood-statistics path, with every launch count set to 0
+   before it and read after: the same Pipeline smoothed with Max h=7
+   (checks as in 5, one K2 launch per cycle), then ops.neighbourhood Std
+   (K3), ops.neighbourhood_quantile_fast (K4) and
+   ops.stencil.neighbourhood_members (K5) at full width; each kernel must
+   have launched;
+7. runs a 256 x 256 cut of the same problem through the whole Pipeline on
+   the card and on the CPU (plain versions), smoothed with Mean, Max and
+   Std, and requires max|d| <= 1e-3.
 
 Any failed check raises. The line before the last is a JSON record of the
 kernels; the last line is {"ok": true, "device": {...}}.
@@ -31,14 +48,18 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 K1_RTOL, K1_ATOL = 1e-5, 1e-4    # tests/test_pallas_stencil.py:36-38
+K3_RTOL, K3_ATOL = 2e-5, 2e-3    # tests/test_pallas_stencil.py:220
+K4_TOL = 1e-5                    # tests/test_pallas_stencil.py:67
 FAST_TOL = 1e-3                  # tests/test_pipeline_consistency.py:86
 CARD_CPU_TOL = 1e-3
 CYCLES = 5
+PALLAS = "gridpp_tpu/ops/pallas_stencil.py"
 
 
 def check(cond, what):
@@ -51,6 +72,21 @@ def field(rng, shape, nan_frac):
     x = rng.normal(0, 10, shape).astype(np.float32)
     x[rng.random(shape) < nan_frac] = np.nan
     return x
+
+
+def compare(got, want, tol):
+    """(ok, max abs difference) of got against want: NaN in the same
+    places, and equal (tol None) or within (rtol, atol) elsewhere."""
+    torch.cuda.synchronize()
+    same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    err = float(torch.nan_to_num(got - want).abs().max()) if got.numel() \
+        else 0.0
+    if tol is None:
+        ok = bool(torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
+    else:
+        ok = bool(torch.allclose(got, want, rtol=tol[0], atol=tol[1],
+                                 equal_nan=True))
+    return same_nan and ok, err
 
 
 def event_ms(fn, reps=50):
@@ -79,6 +115,45 @@ def bench_problem(n=2000, p=10000):
     return lats, lons, plats, plons, background, noise
 
 
+def run_cycles(pipe, bgs, obs, gap, rat):
+    """CYCLES cycles of the fast, general and resolve paths, then one
+    obs-gap cycle of general and of resolve; checks them and returns the
+    number of cycles run."""
+    def run(path, i, po=None):
+        t = time.perf_counter()
+        out = pipe.run_device(bgs[i], obs[i] if po is None else po, rat,
+                              assume_valid=po is None, path=path)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    outs, times = {}, {}
+    for path in ("fast", "general", "resolve"):
+        res = [run(path, i) for i in range(CYCLES)]
+        outs[path] = [r[0] for r in res]
+        times[path] = [r[1] for r in res]
+    gap_general, _ = run("general", 0, gap)
+    gap_resolve, _ = run("resolve", 0, gap)
+    for path in outs:
+        check(all(bool(torch.isfinite(o).all()) for o in outs[path]),
+              f"{path}: every output finite, shape "
+              f"{tuple(outs[path][0].shape)}")
+    for i in range(CYCLES):
+        check(torch.equal(outs["general"][i], outs["resolve"][i]),
+              f"cycle {i}: general == resolve bit for bit")
+    check(torch.equal(gap_general, gap_resolve),
+          "obs-gap cycle (rebuild): general == resolve bit for bit")
+    fast_d = max(float((f - g).abs().max())
+                 for f, g in zip(outs["fast"], outs["general"]))
+    check(fast_d <= FAST_TOL, f"fast within {FAST_TOL} of general "
+                              f"(max|d|={fast_d:.3g})")
+    for path in outs:
+        med = statistics.median(times[path])
+        print(f"  {path}: median cycle {med * 1e3:.3f} ms over {CYCLES} "
+              f"({', '.join(f'{t * 1e3:.3f}' for t in times[path])} ms)",
+              flush=True)
+    return 3 * CYCLES + 2
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs the card")
@@ -96,80 +171,162 @@ def main():
     import gridpp_tpu_torch as gt
     from gridpp_tpu_torch import native
     from gridpp_tpu_torch._build import build_log
+    from gridpp_tpu_torch.ops import neighbourhood as nops
     from gridpp_tpu_torch.ops import stencil
 
     dev = torch.device("cuda", torch.cuda.current_device())
+    mean, mx, std = int(gt.Mean), int(gt.Max), int(gt.Std)
+    wrappers = {"K1": stencil.neighbourhood_mean_cuda,
+                "K2": stencil.neighbourhood_minmax_cuda,
+                "K3": stencil.neighbourhood_var_cuda,
+                "K4": stencil.neighbourhood_quantile_fast_cuda,
+                "K5": stencil.neighbourhood_members_cuda}
 
-    # -- 2. build --------------------------------------------------------
+    # -- 2. build --
     print("[build]", flush=True)
+
+    def timed_build(name):
+        t = time.perf_counter()
+        lib = stencil.build_kernel(name)
+        return lib, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    lib = stencil.build_kernel()
-    print(f"  K1 build {time.perf_counter() - t0:.3f} s", flush=True)
-    print(build_log(lib), flush=True)
+    with ThreadPoolExecutor(len(stencil.KERNELS)) as pool:
+        builds = dict(zip(stencil.KERNELS,
+                          pool.map(timed_build, stencil.KERNELS)))
+    print(f"  K1-K5: {len(builds)} nvcc in parallel, "
+          f"{time.perf_counter() - t0:.3f} s in all", flush=True)
+    for name, (lib, secs) in builds.items():
+        print(f"  -- {name}: {secs:.3f} s\n{build_log(lib)}", flush=True)
     t0 = time.perf_counter()
     check(native.get_lib() is not None, "native host library built")
     print(f"  native build {time.perf_counter() - t0:.3f} s", flush=True)
 
-    # -- 3. K1 against its twin --------------------------------------------
-    print("[K1 vs plain twin]", flush=True)
+    # -- 3. each kernel against its plain version --
     rng = np.random.default_rng(1)
     cases = [((2000, 2000), 7, 0.0), ((2000, 2000), 7, 0.1),
              ((40, 60), 3, 0.1), ((17, 250), 7, 0.1), ((300, 129), 1, 0.1),
              ((31, 31), 0, 0.1), ((256, 129), 7, 0.1), ((160, 128), 3, 0.1),
              ((256, 300), 7, 0.1), ((3, 256, 300), 7, 0.1)]
-    k1_err = 0.0
+    # statistic -> (kernel, its wrapper, its plain version, bar)
+    plane_kernels = [
+        (stat, "K1", stencil.neighbourhood_mean_cuda,
+         stencil.neighbourhood_mean_plain, (K1_RTOL, K1_ATOL))
+        for stat in stencil.MEAN_STATS] + [
+        (stat, "K2", stencil.neighbourhood_minmax_cuda,
+         stencil.neighbourhood_minmax_plain, None)
+        for stat in stencil.MINMAX_STATS] + [
+        (stat, "K3", stencil.neighbourhood_var_cuda,
+         stencil.neighbourhood_var_plain, (K3_RTOL, K3_ATOL))
+        for stat in stencil.VAR_STATS]
+    err = dict.fromkeys(wrappers, 0.0)
+    print("[K1, K2, K3 vs plain versions]", flush=True)
     for shape, h, nan_frac in cases:
         x = torch.as_tensor(field(rng, shape, nan_frac), device=dev)
         hy = min(h, shape[-2] - 1)
         hx = min(h, shape[-1] - 1)
-        for stat in stencil.STATS:
+        for stat, k, kernel, plain, tol in plane_kernels:
             if h == 0:
-                # h = 0 never launches K1 (neighbourhood's pass-through)
-                got = gt.neighbourhood(x, 0, stat)
-                want = gt.neighbourhood(x.cpu(), 0, stat).to(dev)
+                # h = 0 never launches a kernel (the ops' pass-through)
+                got = nops.neighbourhood(x, 0, stat)
+                want = nops.neighbourhood(x.cpu(), 0, stat).to(dev)
             else:
-                got = stencil.neighbourhood_mean_cuda(x, hy, hx, stat)
-                want = stencil.neighbourhood_mean_plain(x, hy, hx, stat)
-            torch.cuda.synchronize()
-            same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
-            err = float(torch.nan_to_num(got - want).abs().max())
-            ok = same_nan and bool(torch.allclose(
-                got, want, rtol=K1_RTOL, atol=K1_ATOL, equal_nan=True))
-            check(ok, f"K1 {shape} h={h} nan={nan_frac} stat={stat} "
-                      f"max|d|={err:.3g}")
-            k1_err = max(k1_err, err)
+                got = kernel(x, hy, hx, stat)
+                want = plain(x, hy, hx, stat)
+            ok, e = compare(got, want, tol)
+            check(ok, f"{k} {shape} h={h} nan={nan_frac} stat={stat} "
+                      f"max|d|={e:.3g}")
+            err[k] = max(err[k], e)
 
+    print("[K4 vs plain version]", flush=True)
+    for shape, h, nan_frac in cases:
+        if len(shape) != 2:
+            continue
+        xn = field(rng, shape, nan_frac)
+        thr = np.quantile(xn[np.isfinite(xn)],
+                          np.linspace(0, 1, 11)).astype(np.float32)
+        x = torch.as_tensor(xn, device=dev)
+        thr = torch.as_tensor(thr, device=dev)
+        hy = min(h, shape[-2] - 1)
+        hx = min(h, shape[-1] - 1)
+        for q in (0.0, 0.25, 0.5, 0.9, 1.0):
+            got = stencil.neighbourhood_quantile_fast_cuda(x, q, hy, hx, thr)
+            ok, e = compare(got, nops._quantile_fast_xla(x, q, h, thr),
+                            (K4_TOL, K4_TOL))
+            check(ok, f"K4 {shape} h={h} nan={nan_frac} q={q} "
+                      f"max|d|={e:.3g}")
+            err["K4"] = max(err["K4"], e)
+    ties = torch.as_tensor(
+        np.random.default_rng(11).integers(0, 5, (30, 40)), device=dev,
+        dtype=torch.float32)
+    ties[4, 7] = torch.nan
+    tthr = torch.arange(5, dtype=torch.float32, device=dev)
+    for q in (float(np.float32(1 / 3)), 0.5, 0.25, float(np.float32(2 / 9))):
+        got = stencil.neighbourhood_quantile_fast_cuda(ties, q, 1, 1, tthr)
+        ok, e = compare(got, nops._quantile_fast_xla(ties, q, 1, tthr), None)
+        check(ok, f"K4 exact cdf ties q={q}: equal")
+    got = stencil.neighbourhood_quantile_fast_cuda(x, float("nan"), hy, hx,
+                                                   thr)
+    check(bool(torch.isnan(got).all()), "K4 NaN quantile: all NaN")
+
+    print("[K5 vs plain version, 2000 x 2000 x 10, h=7]", flush=True)
+    xm = torch.as_tensor(field(rng, (2000, 2000, 10), 0.1), device=dev)
+    for stat in stencil.MEMBER_STATS:
+        tol = None if stat in stencil.MINMAX_STATS else (K1_RTOL, K1_ATOL)
+        got = stencil.neighbourhood_members_cuda(xm, 7, 7, stat)
+        ok, e = compare(got, stencil.neighbourhood_members_plain(
+            xm, 7, 7, stat), tol)
+        check(ok, f"K5 stat={stat} vs plain max|d|={e:.3g}")
+        err["K5"] = max(err["K5"], e)
+        per = (stencil.neighbourhood_minmax_cuda
+               if stat in stencil.MINMAX_STATS
+               else stencil.neighbourhood_mean_cuda)
+        for k in (0, 9):
+            ok, e = compare(got[:, :, k],
+                            per(xm[:, :, k].contiguous(), 7, 7, stat), tol)
+            check(ok, f"K5 stat={stat} member {k} vs K1/K2 max|d|={e:.3g}")
+
+    # -- 4. timings --
+    print("[timings, CUDA events]", flush=True)
     lats, lons, plats, plons, background, noise = bench_problem()
     bg0 = torch.as_tensor(background, device=dev)
-    mean = int(gt.Mean)
-    k1_ms = event_ms(lambda: stencil.neighbourhood_mean_cuda(bg0, 7, 7,
-                                                             mean))
-    plain_ms = event_ms(lambda: stencil.neighbourhood_mean_plain(bg0, 7, 7,
-                                                                 mean))
-    print(f"  K1 2000x2000 h=7 Mean: kernel {k1_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms", flush=True)
+    anom = bg0 - 280.0
+    uni = torch.as_tensor(np.random.default_rng(2).random(
+        (2000, 2000)).astype(np.float32), device=dev)
+    thr11 = torch.linspace(0, 1, 11, device=dev)
+    planes = xm.permute(2, 0, 1).contiguous()
+    ms = {
+        "K1": (lambda: stencil.neighbourhood_mean_cuda(bg0, 7, 7, mean),
+               lambda: stencil.neighbourhood_mean_plain(bg0, 7, 7, mean)),
+        "K2": (lambda: stencil.neighbourhood_minmax_cuda(bg0, 7, 7, mx),
+               lambda: stencil.neighbourhood_minmax_plain(bg0, 7, 7, mx)),
+        "K3": (lambda: stencil.neighbourhood_var_cuda(anom, 7, 7, std),
+               lambda: stencil.neighbourhood_var_plain(anom, 7, 7, std)),
+        "K4": (lambda: stencil.neighbourhood_quantile_fast_cuda(
+                   uni, 0.5, 7, 7, thr11),
+               lambda: nops._quantile_fast_xla(uni, 0.5, 7, thr11)),
+        "K5": (lambda: stencil.neighbourhood_members_cuda(xm, 7, 7, mean),
+               lambda: stencil.neighbourhood_members_plain(xm, 7, 7, mean)),
+    }
+    timing = {k: (event_ms(f), event_ms(p, reps=10)) for k, (f, p)
+              in ms.items()}
+    k1_members_ms = event_ms(lambda: [stencil.neighbourhood_mean_cuda(
+        planes[k], 7, 7, mean) for k in range(10)])
+    for k, (kt, pt) in timing.items():
+        print(f"  {k} ({wrappers[k].__name__}): kernel {kt:.4f} ms, plain "
+              f"{pt:.4f} ms", flush=True)
+    print(f"  K5 Mean 2000x2000x10 in one launch {timing['K5'][0]:.4f} ms; "
+          f"10 launches of K1 on contiguous member planes "
+          f"{k1_members_ms:.4f} ms", flush=True)
 
-    # -- 4. Pipeline at the benchmark configuration ---------------------------
-    print("[Pipeline 2000x2000, 10k obs]", flush=True)
+    # -- 5. the serving path, Mean smoothing --
+    print("[Pipeline 2000x2000, 10k obs, Mean h=7]", flush=True)
     p = plats.size
-    t0 = time.perf_counter()
     grid = gt.Grid(lats, lons)
     points = gt.Points(plats, plons, np.zeros(p), np.zeros(p))
-    structure = gt.BarnesStructure(10000.0)
     idx = grid.nearest_map(points.lats, points.lons)
-    pback = background.reshape(-1)[idx]
-    pobs = pback + noise
+    pobs = background.reshape(-1)[idx] + noise
     ratios = np.full(p, 0.1, np.float32)
-    torch.cuda.reset_peak_memory_stats()
-    pipe = gt.Pipeline(grid, points, structure, halfwidth=7,
-                       statistic=gt.Mean, max_points=10, ratios=ratios,
-                       device=dev)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    print(f"  host set-up {setup_s:.3f} s (shortlist, tile tables, static "
-          f"weights)", flush=True)
-
-    # -- 5. cycles ---------------------------------------------------------
     bgs = [torch.as_tensor(background + np.float32(i), device=dev)
            for i in range(CYCLES)]
     obs = [torch.as_tensor(pobs + np.float32(i), device=dev)
@@ -178,85 +335,104 @@ def main():
     gap[::3] = np.nan
     gap = torch.as_tensor(gap, device=dev)
     rat = torch.as_tensor(ratios, device=dev)
-    torch.cuda.synchronize()
 
-    def run(path, i, po=None):
-        t = time.perf_counter()
-        out = pipe.run_device(bgs[i], obs[i] if po is None else po, rat,
-                              assume_valid=po is None, path=path)
+    def pipeline(stat):
+        t0 = time.perf_counter()
+        pipe = gt.Pipeline(grid, points, gt.BarnesStructure(10000.0),
+                           halfwidth=7, statistic=stat, max_points=10,
+                           ratios=ratios, device=dev)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t
+        print(f"  Pipeline(statistic={gt.Statistic(stat).name}): host set-up "
+              f"{time.perf_counter() - t0:.3f} s (shortlist, tile tables, "
+              "static weights)", flush=True)
+        return pipe
 
-    stencil.neighbourhood_mean_cuda.launches = 0
-    outs, times = {}, {}
-    for path in ("fast", "general", "resolve"):
-        res = [run(path, i) for i in range(CYCLES)]
-        outs[path] = [r[0] for r in res]
-        times[path] = [r[1] for r in res]
-    gap_general, _ = run("general", 0, gap)
-    gap_resolve, _ = run("resolve", 0, gap)
-    launches = stencil.neighbourhood_mean_cuda.launches
-    n_cycles = 3 * CYCLES + 2
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    pipe = pipeline(mean)
+    for w in wrappers.values():
+        w.launches = 0
+    n_cycles = run_cycles(pipe, bgs, obs, gap, rat)
+    launches = {"K1": stencil.neighbourhood_mean_cuda.launches}
+    check(launches["K1"] == n_cycles,
+          f"K1 launched once per cycle ({launches['K1']} launches, "
+          f"{n_cycles} cycles)")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          " GB", flush=True)
 
-    print("[checks]", flush=True)
-    for path in outs:
-        check(all(bool(torch.isfinite(o).all()) for o in outs[path]),
-              f"{path}: every output finite, shape {tuple(outs[path][0].shape)}")
-    for i in range(CYCLES):
-        check(torch.equal(outs["general"][i], outs["resolve"][i]),
-              f"cycle {i}: general == resolve bit for bit")
-    check(torch.equal(gap_general, gap_resolve),
-          "obs-gap cycle (rebuild): general == resolve bit for bit")
-    fast_d = max(float((f - g).abs().max())
-                 for f, g in zip(outs["fast"], outs["general"]))
-    check(fast_d <= FAST_TOL, f"fast within {FAST_TOL} of general "
-                              f"(max|d|={fast_d:.3g})")
-    check(launches == n_cycles,
-          f"K1 launched once per cycle ({launches} launches, {n_cycles} "
+    # -- 6. the neighbourhood-statistics path --
+    print("[neighbourhood statistics: Pipeline Max h=7, Std, quantile_fast, "
+          "members]", flush=True)
+    del pipe
+    pipe = pipeline(mx)
+    for w in wrappers.values():
+        w.launches = 0
+    n_cycles = run_cycles(pipe, bgs, obs, gap, rat)
+    k2_pipe = stencil.neighbourhood_minmax_cuda.launches
+    t0 = time.perf_counter()
+    sd = nops.neighbourhood(anom, 7, std)
+    qf = nops.neighbourhood_quantile_fast(uni, 0.5, 7, thr11)
+    mem = stencil.neighbourhood_members(xm, 7, mean)
+    torch.cuda.synchronize()
+    print(f"  Std + quantile_fast + members: {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    launches.update({k: wrappers[k].launches for k in ("K2", "K3", "K4",
+                                                       "K5")})
+    check(k2_pipe == n_cycles,
+          f"K2 launched once per cycle ({k2_pipe} launches, {n_cycles} "
           "cycles)")
-    for path in outs:
-        med = statistics.median(times[path])
-        print(f"  {path}: median cycle {med * 1e3:.3f} ms over {CYCLES} "
-              f"({', '.join(f'{t * 1e3:.3f}' for t in times[path])} ms)",
-              flush=True)
-    print(f"  peak device memory {peak_gb:.3f} GB", flush=True)
+    for k in ("K2", "K3", "K4", "K5"):
+        check(launches[k] >= 1, f"{k} launched on the path "
+                                f"({launches[k]} launches)")
+    check(bool(torch.isfinite(sd).all()) and sd.shape == (2000, 2000),
+          "Std: finite, (2000, 2000)")
+    check(bool(((qf >= 0) & (qf <= 1)).all()), "quantile_fast: in [0, 1]")
+    check(bool(torch.isfinite(mem).any(dim=-1).all())
+          and mem.shape == (2000, 2000, 10), "members: (2000, 2000, 10)")
 
-    # -- 6. card against CPU -------------------------------------------------
+    # -- 7. card against CPU --
     print("[card vs CPU, 256x256 cut]", flush=True)
     m = 256
     inside = ((plats >= lats[0, 0]) & (plats <= lats[m - 1, 0])
               & (plons >= lons[0, 0]) & (plons <= lons[0, m - 1]))
-    sub_bg = background[:m, :m]
-    sub = {}
-    for where in ("cuda", "cpu"):
-        d = dev if where == "cuda" else torch.device("cpu")
-        g2 = gt.Grid(lats[:m, :m], lons[:m, :m])
-        pts2 = gt.Points(plats[inside], plons[inside],
-                         np.zeros(inside.sum()), np.zeros(inside.sum()))
-        pipe2 = gt.Pipeline(g2, pts2, gt.BarnesStructure(10000.0),
-                            halfwidth=7, statistic=gt.Mean, max_points=10,
-                            ratios=ratios[inside], device=d)
-        po2 = (sub_bg.reshape(-1)[g2.nearest_map(pts2.lats, pts2.lons)]
-               + noise[inside])
-        sub[where] = {path: pipe2.run_device(
-            torch.as_tensor(sub_bg, device=d), torch.as_tensor(po2, device=d),
-            ratios[inside], path=path).cpu()
-            for path in ("fast", "general", "resolve")}
     print(f"  {int(inside.sum())} obs in the cut", flush=True)
-    for path in sub["cuda"]:
-        d = float((sub["cuda"][path] - sub["cpu"][path]).abs().max())
-        check(d <= CARD_CPU_TOL, f"{path}: card vs CPU max|d|={d:.3g}")
+    g2 = gt.Grid(lats[:m, :m], lons[:m, :m])
+    pts2 = gt.Points(plats[inside], plons[inside], np.zeros(inside.sum()),
+                     np.zeros(inside.sum()))
+    sub_bg = background[:m, :m]
+    po2 = (sub_bg.reshape(-1)[g2.nearest_map(pts2.lats, pts2.lons)]
+           + noise[inside])
+    for stat in (mean, mx, std):
+        # Std smooths the anomaly: E[x^2] - E[x]^2 of the 280 K field
+        # cancels most of f32's digits in any implementation
+        shift = np.float32(280.0 if stat == std else 0.0)
+        sub = {}
+        for d in (dev, torch.device("cpu")):
+            pipe2 = gt.Pipeline(g2, pts2, gt.BarnesStructure(10000.0),
+                                halfwidth=7, statistic=stat, max_points=10,
+                                ratios=ratios[inside], device=d)
+            sub[d.type] = {path: pipe2.run_device(
+                torch.as_tensor(sub_bg - shift, device=d),
+                torch.as_tensor(po2 - shift, device=d), ratios[inside],
+                path=path).cpu() for path in ("fast", "general", "resolve")}
+        for path in sub["cuda"]:
+            d = float((sub["cuda"][path] - sub["cpu"][path]).abs().max())
+            check(d <= CARD_CPU_TOL, f"{gt.Statistic(stat).name} {path}: "
+                                     f"card vs CPU max|d|={d:.3g}")
 
+    sources = {"K1": ("neighbourhood_mean", f"{PALLAS}:301"),
+               "K2": ("neighbourhood_minmax", f"{PALLAS}:364"),
+               "K3": ("neighbourhood_var", f"{PALLAS}:330"),
+               "K4": ("neighbourhood_quantile_fast", f"{PALLAS}:465"),
+               "K5": ("neighbourhood_mean", f"{PALLAS}:643")}
     print(json.dumps({"kernels": [{
-        "name": "neighbourhood_mean",
+        "name": wrappers[k].__name__,
         "route": "cuda",
-        "source": "gridpp_tpu_torch/csrc/neighbourhood_mean.cu",
-        "replaces": "gridpp_tpu/ops/pallas_stencil.py:301",
-        "launches": launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms}]}), flush=True)
+        "source": f"gridpp_tpu_torch/csrc/{sources[k][0]}.cu",
+        "replaces": sources[k][1],
+        "launches": launches[k],
+        "max_abs_err": err[k],
+        "ms": timing[k][0],
+        "plain_ms": timing[k][1]} for k in wrappers]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,15 @@
-"""gridpp_tpu_torch: gridpp_tpu's serving pipeline in PyTorch and CUDA.
+"""gridpp_tpu_torch: gridpp_tpu's serving pipeline and neighbourhood
+statistics in PyTorch and CUDA.
 
 A port of the JAX package gridpp_tpu, which stays the reference. This
 package imports torch, numpy and scipy, never jax; it carries its own
 copies of the numpy host modules it needs. Ported so far: the serving
-`Pipeline` (neighbourhood Mean/Sum/Count smoothing and tiled OI) and the
-neighbourhood stencil, whose CUDA kernel (csrc/neighbourhood_mean.cu) is
-built with nvcc at its first launch. Importing the package initialises
-no CUDA.
+`Pipeline` (tiled OI, smoothed with any neighbourhood statistic), the
+neighbourhood statistics on tensors (ops/neighbourhood.py) with their CUDA
+kernels K1-K5 (csrc/*.cu, built with nvcc at first launch), and gridpp's
+numpy neighbourhood API. The top-level names follow gridpp_tpu's: the
+numpy API here, the tensor ops under gridpp_tpu_torch.ops. Importing the
+package initialises no CUDA.
 """
 from .constants import *  # noqa: F401,F403  (enums, constants, MV)
 from .constants import __version__  # noqa: F401
@@ -17,5 +20,9 @@ from .structure import (  # noqa: F401
     BarnesStructure, CressmanStructure, CrossValidation, LinearStructure,
     MultipleStructure, PowerlawStructure, SoarStructure, StructureFunction,
     ToarStructure)
+from .api.utils import calc_even_quantiles, calc_statistic  # noqa: F401
 from .api.pipeline import Pipeline  # noqa: F401
-from .ops.neighbourhood import neighbourhood  # noqa: F401
+from .api.neighbourhood import (  # noqa: F401
+    get_neighbourhood_thresholds, neighbourhood, neighbourhood_brute_force,
+    neighbourhood_ens, neighbourhood_quantile, neighbourhood_quantile_ens,
+    neighbourhood_quantile_ens_fast, neighbourhood_quantile_fast)

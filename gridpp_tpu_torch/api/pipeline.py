@@ -51,7 +51,11 @@ class Pipeline:
       points: observation Points (static network)
       structure: StructureFunction for the OI
       halfwidth/statistic: neighbourhood filter settings (halfwidth=0
-        disables smoothing; Mean, Sum and Count are ported)
+        disables smoothing). Any statistic ops.neighbourhood takes: on the
+        card Mean/Sum/Count, Min/Max and Std/Variance run kernels K1, K2
+        and K3, the others the plain brute force. Quantile (which needs a
+        level) and RandomChoice raise ValueError on the first cycle, as
+        in gridpp_tpu.
       max_points: OI localization cap
       candidates: size of the cached shortlist per gridpoint (>=
         max_points; the extra slots absorb observations that go missing

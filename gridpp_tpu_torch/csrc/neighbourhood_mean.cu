@@ -1,9 +1,11 @@
 // Neighbourhood Mean / Sum / Count stencil for Hopper (sm_90a).
 //
 // Replaces gridpp_tpu/ops/pallas_stencil.py::_mean_kernel (reached through
-// neighbourhood_mean). For every cell it computes the NaN-skipping sum and
-// count over a (2hy+1) x (2hx+1) window clipped at the domain edge:
-// non-finite cells add 0 to the sum and are left out of the count. Then
+// neighbourhood_mean) and, launched on the member-minor (Y, X, E) layout,
+// the Mean/Sum/Count half of ::_member_mean_kernel (neighbourhood_members).
+// For every cell it computes the NaN-skipping sum and count over a
+// (2hy+1) x (2hx+1) window clipped at the domain edge: non-finite cells add
+// 0 to the sum and are left out of the count. Then
 //   Mean  = s / max(c, 1), NaN where c == 0
 //   Sum   = s,             NaN where c == 0
 //   Count = c.
@@ -11,31 +13,24 @@
 // What bounds it: one f32 read and one f32 write of the field (16 MB each at
 // 2000 x 2000); the (2h+1)^2 adds per cell are far below the card's compute.
 // The design reads each input cell from device memory about once: a block
-// loads its (BY + 2hy) x (BX + 2hx) halo tile into shared memory (cells
-// outside the domain are read as NaN, which gives the clipped window), does
-// the vertical pass into shared memory (sums and counts), then the
-// horizontal pass, and writes the finalized statistic. Each pass is a
-// direct (2h+1)-term sum, not a running add-and-subtract, so no error
-// accumulates along a row. A leading batch axis (B, Y, X) rides on
-// blockIdx.z; 2-D callers pass B = 1.
+// loads its halo tile into shared memory (stencil_tile.cuh), does the
+// vertical pass into shared memory (sums and counts), then the horizontal
+// pass, and writes the finalized statistic. Each pass is a direct
+// (2h+1)-term sum, not a running add-and-subtract, so no error accumulates
+// along a row. Planes (a batch, or the members) ride on blockIdx.z.
 //
 // Plain C interface, loaded with ctypes (gridpp_tpu_torch/ops/stencil.py).
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "stencil_tile.cuh"
 
 namespace {
 
-constexpr int kBY = 32;        // output rows per block
-constexpr int kBX = 64;        // output columns per block
-constexpr int kThreads = 256;
-
-constexpr int kStatSum = 70;   // Statistic.Sum
-constexpr int kStatCount = 80; // Statistic.Count; any other stat is Mean
+using namespace stencil;
 
 __global__ void __launch_bounds__(kThreads)
 neighbourhood_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
-                          int ny, int nx, int hy, int hx, int stat) {
+                          int ny, int nx, Layout lay, int hy, int hx,
+                          int stat) {
   extern __shared__ float smem[];
   const int tile_w = kBX + 2 * hx;
   const int tile_h = kBY + 2 * hy;
@@ -43,28 +38,10 @@ neighbourhood_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
   float* vsum = tile + tile_h * tile_w;      // kBY x tile_w vertical sums
   float* vcnt = vsum + kBY * tile_w;         // kBY x tile_w vertical counts
 
-  const long long plane = static_cast<long long>(ny) * nx;
-  const float* xb = x + blockIdx.z * plane;
-  float* ob = out + blockIdx.z * plane;
-  const int y0 = blockIdx.y * kBY - hy;      // absolute row of tile row 0
-  const int x0 = blockIdx.x * kBX - hx;      // absolute column of tile col 0
-
-  // 1. halo tile -> shared memory; consecutive threads read consecutive
-  //    columns of one row, so the loads coalesce.
-  for (int i = threadIdx.x; i < tile_h * tile_w; i += kThreads) {
-    const int r = i / tile_w;
-    const int c = i - r * tile_w;
-    const int gy = y0 + r;
-    const int gx = x0 + c;
-    float v = NAN;
-    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-      v = xb[static_cast<long long>(gy) * nx + gx];
-    }
-    tile[i] = v;
-  }
+  load_halo_tile(x, lay, ny, nx, hy, hx, tile_h, tile_w, tile);
   __syncthreads();
 
-  // 2. vertical pass: (2hy+1)-term sums down each tile column.
+  // vertical pass: (2hy+1)-term sums down each tile column.
   const int len_y = 2 * hy + 1;
   for (int i = threadIdx.x; i < kBY * tile_w; i += kThreads) {
     const int r = i / tile_w;
@@ -84,8 +61,9 @@ neighbourhood_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
   __syncthreads();
 
-  // 3. horizontal pass over the vertical sums, then finalize.
+  // horizontal pass over the vertical sums, then finalize.
   const int len_x = 2 * hx + 1;
+  float* ob = out + blockIdx.z * lay.plane;
   for (int i = threadIdx.x; i < kBY * kBX; i += kThreads) {
     const int r = i / kBX;
     const int c = i - r * kBX;
@@ -108,48 +86,29 @@ neighbourhood_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
     } else {
       res = NAN;
     }
-    ob[static_cast<long long>(gy) * nx + gx] = res;
+    ob[gy * lay.row + gx * lay.col] = res;
   }
-}
-
-size_t smem_bytes(int hy, int hx) {
-  const size_t tile_w = kBX + 2 * static_cast<size_t>(hx);
-  const size_t tile_h = kBY + 2 * static_cast<size_t>(hy);
-  return (tile_h * tile_w + 2 * kBY * tile_w) * sizeof(float);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one launch needs for halfwidths (hy, hx).
-size_t nbm_smem_bytes(int hy, int hx) { return smem_bytes(hy, hx); }
-
-// The most dynamic shared memory a block may opt in to on `device`, or -1.
-int nbm_smem_limit(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess) {
-    return -1;
-  }
-  return v;
-}
-
-// x, out: device pointers to (b, ny, nx) contiguous f32. stream: a
-// cudaStream_t of `device`. Returns the cudaError_t of the launch (0 = ok).
-int nbm_launch(const float* x, float* out, int b, int ny, int nx, int hy,
-               int hx, int stat, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(hy, hx);
-  err = cudaFuncSetAttribute(neighbourhood_mean_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY, b);
-  neighbourhood_mean_kernel<<<grid, kThreads, smem,
+// x, out: device pointers to `planes` planes of ny x nx f32, element (y, x)
+// of plane b at b * plane + y * row + x * col (the same layout for both).
+// stream: a cudaStream_t of `device`. Returns 0, -1 when the halfwidths need
+// more shared memory than the device gives a block, or a cudaError_t.
+int nbm_launch(const float* x, float* out, int planes, int ny, int nx,
+               long long plane, long long row, long long col, int hy, int hx,
+               int stat, int device, void* stream) {
+  const size_t smem =
+      (tile_floats(hy, hx) + 2 * kBY * (kBX + 2 * static_cast<size_t>(hx))) *
+      sizeof(float);
+  const int err = prepare_launch(neighbourhood_mean_kernel, smem, device);
+  if (err != 0) return err;
+  neighbourhood_mean_kernel<<<grid_for(ny, nx, planes), kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
-      x, out, ny, nx, hy, hx, stat);
+      x, out, ny, nx, Layout{plane, row, col}, hy, hx, stat);
   return static_cast<int>(cudaGetLastError());
 }
 

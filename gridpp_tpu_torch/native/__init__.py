@@ -3,10 +3,11 @@
 The same C++ as gridpp_tpu's native engine (csrc/gridpp_native.cpp and
 csrc/gridpp_kernels.cpp), compiled with g++ on first use into this
 package's own build directory (see _build.py). The library holds the
-cell-hash spatial index and `pair_rho_host`, whose rho bits make the
-canonical shortlist (ops/canonical.py) identical to gridpp_tpu's. When no
-compiler is available the callers fall back to scipy and numpy, as
-gridpp_tpu's do.
+cell-hash spatial index, `pair_rho_host`, whose rho bits make the
+canonical shortlist (ops/canonical.py) identical to gridpp_tpu's, and the
+host neighbourhood kernels behind the numpy API (api/neighbourhood.py).
+When no compiler is available the callers fall back to scipy, numpy and
+the port's ops, as gridpp_tpu's do.
 """
 from __future__ import annotations
 
@@ -58,6 +59,11 @@ def get_lib():
         c_p = ctypes.c_void_p
         c_i64 = ctypes.c_int64
         c_i32 = ctypes.c_int32
+        lib.nb_brute.argtypes = [c_p, c_i64, c_i64, c_i64, c_i32,
+                                 ctypes.c_double, c_i64, c_p]
+        lib.nb_meansum.argtypes = [c_p, c_i64, c_i64, c_i64, c_i32, c_p]
+        lib.nb_quantile_fast.argtypes = [c_p, c_i64, c_i64, c_i64, c_p,
+                                         c_i64, c_p, ctypes.c_float, c_p]
         lib.index_build.restype = c_p
         lib.index_build.argtypes = [c_p, c_i64, ctypes.c_double]
         lib.index_free.argtypes = [c_p]
@@ -142,3 +148,51 @@ def pair_rho_host(gfx, ofx, cand, mask, kernel_type):
         *[_ptr(a) for a in oarrs],
         _ptr(cand), _ptr(mask), kpad, int(kernel_type), _ptr(rho))
     return rho
+
+
+def nb_brute(values: np.ndarray, halfwidth: int, stat: int,
+             quantile: float = 0.5) -> np.ndarray | None:
+    """Brute-force windowed statistic; values (Y, X) or (Y, X, E). None
+    when the native engine is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    v = _f32c(values)
+    ny, nx = v.shape[0], v.shape[1]
+    ne = v.shape[2] if v.ndim == 3 else 1
+    out = np.empty((ny, nx), np.float32)
+    lib.nb_brute(_ptr(v), ny, nx, ne, int(stat), float(quantile),
+                 int(halfwidth), _ptr(out))
+    return out
+
+
+def nb_meansum(values: np.ndarray, halfwidth: int,
+               stat: int) -> np.ndarray | None:
+    """Running-sum neighbourhood Mean/Sum/Count/Std/Variance, (Y, X)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    v = _f32c(values)
+    ny, nx = v.shape
+    out = np.empty((ny, nx), np.float32)
+    lib.nb_meansum(_ptr(v), ny, nx, int(halfwidth), int(stat), _ptr(out))
+    return out
+
+
+def nb_quantile_fast(values: np.ndarray, halfwidth: int,
+                     thresholds: np.ndarray, qfield: np.ndarray | None,
+                     q_scalar: float) -> np.ndarray | None:
+    """Fused threshold-CDF windowed quantile (neighbourhood.cpp:296-527);
+    qfield (Y, X), when given, overrides q_scalar per cell."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    v = _f32c(values)
+    thr = _f32c(thresholds)
+    ny, nx = v.shape
+    qf = None if qfield is None else _f32c(qfield)
+    out = np.empty((ny, nx), np.float32)
+    lib.nb_quantile_fast(_ptr(v), ny, nx, int(halfwidth), _ptr(thr),
+                         thr.size, None if qf is None else _ptr(qf),
+                         float(q_scalar), _ptr(out))
+    return out

@@ -1,4 +1,11 @@
-"""Kernel K1 and the Pipeline on a CUDA card (skipped without one).
+"""Kernels K1-K5 and the Pipeline on a CUDA card (skipped without one).
+
+Each kernel is held to its plain PyTorch version on the same card, at the
+bars of tests/test_pallas_stencil.py: K1 and K5's Mean/Sum/Count rtol 1e-5,
+atol 1e-4 (:36-38, :199); K2 and K5's Min/Max bit for bit (order-free);
+K3 rtol 2e-5, atol 2e-3 (:220); K4 rtol/atol 1e-5 (:67) and bit for bit on
+exact cdf ties (:70-85). Every kernel's launch counter moves by one per
+launch.
 
 This file imports no jax, so it also runs on a machine with the card and
 no JAX installed:
@@ -11,12 +18,25 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import gridpp_tpu_torch as gt  # noqa: E402
+from gridpp_tpu_torch.ops import neighbourhood as tops  # noqa: E402
 from gridpp_tpu_torch.ops import stencil  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-STATS = [int(gt.Mean), int(gt.Sum), int(gt.Count)]
 TOL = dict(rtol=1e-5, atol=1e-4)  # tests/test_pallas_stencil.py:36-38
+VAR_TOL = dict(rtol=2e-5, atol=2e-3)  # :220
+QF_TOL = dict(rtol=1e-5, atol=1e-5)  # :67
+SHAPES = [((40, 60), 3), ((17, 250), 7), ((300, 129), 1), ((31, 31), 0),
+          ((256, 129), 7), ((160, 128), 3), ((256, 300), 7), ((12, 9), 20),
+          ((3, 256, 300), 7), ((2000, 2000), 7)]
+# statistic -> (kernel wrapper, bar)
+KERNEL_OF = {int(gt.Mean): (stencil.neighbourhood_mean_cuda, TOL),
+             int(gt.Sum): (stencil.neighbourhood_mean_cuda, TOL),
+             int(gt.Count): (stencil.neighbourhood_mean_cuda, TOL),
+             int(gt.Min): (stencil.neighbourhood_minmax_cuda, None),
+             int(gt.Max): (stencil.neighbourhood_minmax_cuda, None),
+             int(gt.Std): (stencil.neighbourhood_var_cuda, VAR_TOL),
+             int(gt.Variance): (stencil.neighbourhood_var_cuda, VAR_TOL)}
 
 
 @pytest.fixture
@@ -35,30 +55,115 @@ def _field(shape, seed=0, nan_frac=0.1):
     return x
 
 
-@pytest.mark.parametrize("stat", STATS)
-@pytest.mark.parametrize("shape,h", [
-    ((40, 60), 3), ((17, 250), 7), ((300, 129), 1), ((31, 31), 0),
-    ((256, 129), 7), ((160, 128), 3), ((256, 300), 7), ((12, 9), 20),
-    ((3, 256, 300), 7), ((2000, 2000), 7)])
-def test_kernel_matches_twin(dev, stat, shape, h):
+def _assert_matches(got, want, tol):
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    if tol is None:
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+
+
+@pytest.mark.parametrize("stat", list(KERNEL_OF))
+@pytest.mark.parametrize("shape,h", SHAPES)
+def test_kernel_matches_plain(dev, stat, shape, h):
+    """ops.neighbourhood on the card (K1, K2 or K3) against the same op on
+    the same values, on the card, through the plain dispatch."""
     x = torch.as_tensor(_field(shape, seed=h), device=dev)
-    before = stencil.neighbourhood_mean_cuda.launches
-    got = gt.neighbourhood(x, h, stat)
-    want = gt.neighbourhood(x.cpu(), h, stat)
+    wrapper, tol = KERNEL_OF[stat]
+    before = wrapper.launches
+    got = tops.neighbourhood(x, h, stat)
     torch.cuda.synchronize()
-    assert stencil.neighbourhood_mean_cuda.launches == before + (h > 0)
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), **TOL)
+    assert wrapper.launches == before + (h > 0)
+    want = (tops._xla_basic(x, h, stat) if h > 0
+            else tops.neighbourhood(x.cpu(), 0, stat))
+    assert wrapper.launches == before + (h > 0)
+    _assert_matches(got, want, tol)
 
 
 def test_kernel_rejects_what_it_cannot_take(dev):
     x = torch.zeros((64, 64), device=dev)
-    with pytest.raises(ValueError, match="contiguous"):
-        stencil.neighbourhood_mean_cuda(x.t()[:, :32], 2, 2, 0)
-    with pytest.raises(TypeError):
-        stencil.neighbourhood_mean_cuda(x.double(), 2, 2, 0)
-    big = torch.zeros((4001, 4001), device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        stencil.neighbourhood_mean_cuda(big, 2000, 2000, 0)
+    for fn, stat in ((stencil.neighbourhood_mean_cuda, 0),
+                     (stencil.neighbourhood_minmax_cuda, int(gt.Max)),
+                     (stencil.neighbourhood_var_cuda, int(gt.Std))):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.t()[:, :32], 2, 2, stat)
+        with pytest.raises(TypeError):
+            fn(x.double(), 2, 2, stat)
+        big = torch.zeros((4001, 4001), device=dev)
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(big, 2000, 2000, stat)
+
+
+@pytest.mark.parametrize("q", [0.0, 0.25, 0.5, 0.9, 1.0])
+@pytest.mark.parametrize("shape,h,t", [((40, 60), 3, 11), ((17, 140), 7, 5),
+                                       ((33, 33), 2, 20), ((24, 24), 0, 7),
+                                       ((64, 130), 7, 11), ((2000, 2000), 7,
+                                                            11)])
+def test_quantile_fast_kernel_matches_plain(dev, q, shape, h, t):
+    x = _field(shape, seed=h + t)
+    thr = np.quantile(x[np.isfinite(x)],
+                      np.linspace(0, 1, t)).astype(np.float32)
+    xd, thrd = torch.as_tensor(x, device=dev), torch.as_tensor(thr,
+                                                               device=dev)
+    before = stencil.neighbourhood_quantile_fast_cuda.launches
+    got = tops.neighbourhood_quantile_fast(xd, q, h, thrd)
+    torch.cuda.synchronize()
+    assert stencil.neighbourhood_quantile_fast_cuda.launches == before + 1
+    want = tops._quantile_fast_xla(xd, q, h, thrd)
+    _assert_matches(got, want, QF_TOL)
+
+
+@pytest.mark.parametrize("q", [float(np.float32(1.0 / 3.0)), 0.5, 0.25,
+                               float(np.float32(2.0 / 9.0))])
+def test_quantile_fast_kernel_exact_ties(dev, q):
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 5, (30, 40)).astype(np.float32)
+    x[4, 7] = np.nan
+    xd = torch.as_tensor(x, device=dev)
+    thr = torch.arange(5, dtype=torch.float32, device=dev)
+    got = tops.neighbourhood_quantile_fast(xd, q, 1, thr)
+    _assert_matches(got, tops._quantile_fast_xla(xd, q, 1, thr), None)
+
+
+def test_quantile_fast_kernel_nan_quantile_and_region(dev):
+    x = _field((40, 50), seed=3)
+    x[10:20, 10:30] = np.nan
+    xd = torch.as_tensor(x, device=dev)
+    thr = torch.linspace(-30, 30, 9, device=dev)
+    got = tops.neighbourhood_quantile_fast(xd, torch.tensor(0.5, device=dev),
+                                           2, thr)
+    _assert_matches(got, tops._quantile_fast_xla(xd, 0.5, 2, thr), QF_TOL)
+    assert torch.isnan(
+        tops.neighbourhood_quantile_fast(xd, float("nan"), 2, thr)).all()
+    with pytest.raises(ValueError, match="thresholds"):
+        stencil.neighbourhood_quantile_fast_cuda(xd, 0.5, 2, 2, thr[:0])
+
+
+@pytest.mark.parametrize("stat", stencil.MEMBER_STATS)
+@pytest.mark.parametrize("shape,h", [((40, 60, 4), 3), ((17, 250, 2), 7),
+                                     ((31, 31, 6), 0),
+                                     ((2000, 2000, 10), 7)])
+def test_members_kernel_matches_plain(dev, stat, shape, h):
+    """K5 in one launch against its plain version and against K1/K2 on
+    each member."""
+    x = torch.as_tensor(_field(shape, seed=h), device=dev)
+    before = stencil.neighbourhood_members_cuda.launches
+    got = stencil.neighbourhood_members(x, h, stat)
+    torch.cuda.synchronize()
+    assert stencil.neighbourhood_members_cuda.launches == before + (h > 0)
+    tol = None if stat in stencil.MINMAX_STATS else TOL
+    if h > 0:
+        hy, hx = min(h, shape[0] - 1), min(h, shape[1] - 1)
+        want = stencil.neighbourhood_members_plain(x, hy, hx, stat)
+        _assert_matches(got, want, tol)
+        k = shape[2] - 1
+        _assert_matches(got[:, :, k],
+                        tops.neighbourhood(x[:, :, k].contiguous(), h, stat),
+                        tol)
+    else:
+        _assert_matches(got, stencil.neighbourhood_members(x.cpu(), 0, stat),
+                        None)
 
 
 def _problem(seed=7, n=80, n_obs=120):
@@ -74,10 +179,15 @@ def _problem(seed=7, n=80, n_obs=120):
     return grid, pts, bg, pobs, np.full(n_obs, 0.2, np.float32)
 
 
-def test_pipeline_on_card(dev):
+@pytest.mark.parametrize("stat", ["Mean", "Max", "Std"])
+def test_pipeline_on_card(dev, stat):
     grid, pts, bg, pobs, ratios = _problem()
-    kw = dict(halfwidth=3, statistic=gt.Mean, max_points=8, tiled=True,
-              tile_shape=(16, 32), ratios=ratios)
+    if stat == "Std":
+        # E[x^2] - E[x]^2 of the 280 K field cancels most of f32's digits
+        # (tests/test_torch_pipeline.py); smooth its anomaly instead
+        bg, pobs = bg - np.float32(280.0), pobs - np.float32(280.0)
+    kw = dict(halfwidth=3, statistic=getattr(gt.Statistic, stat),
+              max_points=8, tiled=True, tile_shape=(16, 32), ratios=ratios)
     card = gt.Pipeline(grid, pts, gt.BarnesStructure(30000.0), device=dev,
                        **kw)
     cpu = gt.Pipeline(grid, pts, gt.BarnesStructure(30000.0), device="cpu",

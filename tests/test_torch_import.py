@@ -27,8 +27,13 @@ def test_import_pulls_in_no_jax():
     "Grid", "Points", "Point", "BarnesStructure", "CressmanStructure",
     "SoarStructure", "ToarStructure", "PowerlawStructure",
     "LinearStructure", "MultipleStructure", "CrossValidation",
-    "StructureFunction", "Statistic", "Mean", "Sum", "Count", "Pipeline",
-    "neighbourhood"])
+    "StructureFunction", "Statistic", "Mean", "Sum", "Count", "Min", "Max",
+    "Std", "Variance", "Median", "Pipeline", "neighbourhood",
+    "neighbourhood_brute_force", "neighbourhood_quantile",
+    "neighbourhood_quantile_fast", "get_neighbourhood_thresholds",
+    "neighbourhood_ens", "neighbourhood_quantile_ens",
+    "neighbourhood_quantile_ens_fast", "calc_statistic",
+    "calc_even_quantiles"])
 def test_public_names(name):
     import gridpp_tpu_torch
     assert hasattr(gridpp_tpu_torch, name)

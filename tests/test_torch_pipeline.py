@@ -177,3 +177,86 @@ def test_run_device_rejects_other_devices():
         pt.run_device(prob["background"], pobs)
     with pytest.raises(ValueError, match="path"):
         pt.run_device(bg, tensor(pobs), path="cached")
+
+
+_STAT_PIPES = {}
+
+
+@pytest.mark.parametrize("stat,tol", [("Max", 1e-4), ("Std", 1e-3),
+                                      ("Median", 1e-3)])
+@pytest.mark.parametrize("path", ["general", "flat"])
+def test_smoothing_statistics_match_gridpp_tpu(stat, tol, path):
+    """Pipeline smoothed with Max (kernel K2 on the card), Std (K3) or
+    Median (the brute force), halfwidth 3, against gridpp_tpu.Pipeline.
+
+    Std runs on the anomaly of the problem (background and obs less
+    280 K): on the 280 K field E[x^2] - E[x]^2 cancels about five of f32's
+    seven digits in either package, so two correct implementations that
+    sum in other orders (or, as XLA on the CPU does, fuse the last step
+    into an FMA) differ by ~5e-3 there, beyond the bar."""
+    prob = problem(0)
+    if stat == "Std":
+        prob["background"] = prob["background"] - np.float32(280.0)
+    tiled = path != "flat"
+    if (stat, tiled) not in _STAT_PIPES:
+        grid, pts, sj = objects(gj, prob)
+        g2, p2, st = objects(gt, prob)
+        kw = dict(halfwidth=3, statistic=getattr(gj.Statistic, stat),
+                  max_points=MAX_POINTS, tiled=tiled, ratios=prob["ratios"])
+        _STAT_PIPES[stat, tiled] = (gj.Pipeline(grid, pts, sj, **kw),
+                                    gt.Pipeline(g2, p2, st, device="cpu",
+                                                **kw),
+                                    obs_values(prob, grid)[1])
+    pj, pt, pobs = _STAT_PIPES[stat, tiled]
+    bg = prob["background"]
+    kw = dict(pratios=prob["ratios"], path="general")
+    want = np.asarray(pj.run_device(jnp.asarray(bg), jnp.asarray(pobs),
+                                    **kw))
+    got = pt.run_device(tensor(bg), tensor(pobs), **kw).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    if tiled:
+        assert torch.equal(torch.as_tensor(got), pt.run_device(
+            tensor(bg), tensor(pobs), prob["ratios"], path="resolve"))
+
+
+@pytest.mark.parametrize("stat,match", [
+    ("Quantile", "requires a quantile level"),
+    ("RandomChoice", "Cannot compute statistic")])
+def test_statistics_without_a_stencil_raise_on_first_cycle(stat, match):
+    """As in gridpp_tpu: the Pipeline builds, and its first cycle raises
+    the ops layer's ValueError."""
+    prob = problem(1, n=16, n_obs=12)
+    g2, p2, st = objects(gt, prob)
+    pipe = gt.Pipeline(g2, p2, st, halfwidth=2,
+                       statistic=getattr(gt.Statistic, stat), max_points=4,
+                       ratios=prob["ratios"], device="cpu")
+    _, pobs = obs_values(prob, g2)
+    with pytest.raises(ValueError, match=match):
+        pipe(prob["background"], pobs)
+
+
+def test_nan_obs_elevation_matches_plain_oi():
+    """ROADMAP F1 pinned in the port: with one NaN obs elevation and a
+    vertical structure scale, the tiled resolve and general paths and the
+    flat path stay with gridpp_tpu.optimal_interpolation (the port pages
+    with index gathers, so the NaN stays in its own candidate; gridpp_tpu's
+    tiled path, which pages with one-hot einsums, does not)."""
+    prob = problem(5, n=60, n_obs=120, elevs=True)
+    prob["pelev"] = prob["pelev"].copy()
+    prob["pelev"][17] = np.nan
+    grid, pts, sj = objects(gj, prob, gj.BarnesStructure(30000.0, 200.0))
+    pback, pobs = obs_values(prob, grid)
+    plain = gj.optimal_interpolation(grid, prob["background"], pts, pobs,
+                                     prob["ratios"], pback, sj, MAX_POINTS)
+    g2, p2, st = objects(gt, prob, gt.BarnesStructure(30000.0, 200.0))
+    n_obs = p2.size()
+    bg, po = tensor(prob["background"]), tensor(pobs)
+    for tiled, paths in ((True, ("resolve", "general")), (False,
+                                                          ("general",))):
+        pipe = gt.Pipeline(g2, p2, st, halfwidth=0, max_points=MAX_POINTS,
+                           tiled=tiled, candidates=n_obs, device="cpu")
+        for path in paths:
+            out = pipe.run_device(bg, po, prob["ratios"], path=path).numpy()
+            np.testing.assert_allclose(out, plain, rtol=0, atol=1e-3,
+                                       err_msg=f"tiled={tiled} {path}")

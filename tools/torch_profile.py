@@ -1,9 +1,11 @@
 """Where a gridpp_tpu_torch Pipeline cycle spends its time on a CUDA card.
 
     python3 tools/torch_profile.py [--n 2000] [--obs 10000] [--cycles 3]
+                                   [--statistic Mean]
 
 Builds Pipeline at the benchmark configuration (bench.py:57-69: Barnes
-10 km, max_points=10, neighbourhood Mean h=7, ratios 0.1, seed 0), then for
+10 km, max_points=10, neighbourhood Mean h=7, ratios 0.1, seed 0; another
+smoothing statistic with --statistic, e.g. Max), then for
 each path (fast, general, resolve) profiles a few warm cycles with
 torch.profiler and prints: the host time per cycle, the summed device
 (kernel) time per cycle, the device's idle share over the window, and the
@@ -32,6 +34,8 @@ def main():
     ap.add_argument("--obs", type=int, default=10000)
     ap.add_argument("--cycles", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--statistic", default="Mean",
+                    help="smoothing statistic: a name of gt.Statistic")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_profile: needs a CUDA card")
@@ -53,7 +57,9 @@ def main():
     ratios = np.full(p, 0.1, np.float32)
     t0 = time.perf_counter()
     pipe = gt.Pipeline(grid, points, gt.BarnesStructure(10000.0),
-                       halfwidth=7, statistic=gt.Mean, max_points=10,
+                       halfwidth=7,
+                       statistic=getattr(gt.Statistic, args.statistic),
+                       max_points=10,
                        ratios=ratios, device=dev)
     torch.cuda.synchronize()
     print(f"host set-up {time.perf_counter() - t0:.3f} s")
