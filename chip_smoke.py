@@ -34,9 +34,21 @@ Run from the root of a checkout. In order it:
    (K3), ops.neighbourhood_quantile_fast (K4) and
    ops.stencil.neighbourhood_members (K5) at full width; each kernel must
    have launched;
-7. runs a 256 x 256 cut of the same problem through the whole Pipeline on
-   the card and on the CPU (plain versions), smoothed with Mean, Max and
-   Std, and requires max|d| <= 1e-3.
+7. ensemble OI at the benchmark's ensemble rows (bench.py:160-186): one
+   BarnesStructure(10 km) shared by every ensemble pipeline (the canonical
+   shortlist is built once), a 2000 x 2000 x 10 normal(280, 5) ensemble,
+   distinct per cycle, psigmas 1.5. EnsiPipeline at halfwidth 0 and with
+   Mean h=7: 5 all-valid (fast) cycles and 5 general cycles on the same
+   inputs, equal bit for bit, then a general cycle with a third of the obs
+   missing; finite outputs, no condition failures, exactly one K5 launch
+   per smoothed cycle. Then MultiEnsiPipeline ebesc, ebe and utem, 5
+   cycles each: finite outputs, no utem condition failures. Prints each
+   pipeline's set-up time, the median cycle times and the phase's peak
+   device memory;
+8. runs a 256 x 256 cut of the same problem on the card and on the CPU
+   (plain versions): Pipeline smoothed with Mean, Max and Std (max|d| <=
+   1e-3), EnsiPipeline at h=0 and with Mean h=7 and MultiEnsiPipeline utem
+   (max|d| <= 2e-3), ebe and ebesc (max|d| <= 1e-3).
 
 Any failed check raises. The line before the last is a JSON record of the
 kernels; the last line is {"ok": true, "device": {...}}.
@@ -58,6 +70,10 @@ K3_RTOL, K3_ATOL = 2e-5, 2e-3    # tests/test_pallas_stencil.py:220
 K4_TOL = 1e-5                    # tests/test_pallas_stencil.py:67
 FAST_TOL = 1e-3                  # tests/test_pipeline_consistency.py:86
 CARD_CPU_TOL = 1e-3
+# card vs CPU of the ensemble pipelines: the E x E products and sums run in
+# other orders; the Newton-Schulz transform (EnSI, utem) amplifies that
+ENS_CARD_CPU_TOL = {"ensi": 2e-3, "utem": 2e-3, "ebe": 1e-3, "ebesc": 1e-3}
+N_ENS = 10
 CYCLES = 5
 PALLAS = "gridpp_tpu/ops/pallas_stencil.py"
 
@@ -152,6 +168,96 @@ def run_cycles(pipe, bgs, obs, gap, rat):
               f"({', '.join(f'{t * 1e3:.3f}' for t in times[path])} ms)",
               flush=True)
     return 3 * CYCLES + 2
+
+
+def timed(fn):
+    """fn() and its host-clock seconds, up to a synchronised device."""
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def report(name, times):
+    print(f"  {name}: median cycle {statistics.median(times) * 1e3:.3f} ms "
+          f"over {len(times)} ({', '.join(f'{t * 1e3:.3f}' for t in times)}"
+          " ms)", flush=True)
+
+
+def ensemble_phase(gt, stencil, dev, grid, points, pback, obs, gap, ratios):
+    """Phase 7. Returns (K5's launches on the smoothed EnSI path, the
+    numpy ensemble)."""
+    rng = np.random.default_rng(3)
+    n, p = grid.size()[0], points.size()
+    # one structure object: canonical_shortlist's cache (keyed on its id)
+    # then builds the 20-candidate shortlist once for every pipeline
+    structure = gt.BarnesStructure(10000.0)
+    ens_np = rng.normal(280, 5, (n, n, N_ENS)).astype(np.float32)
+    ens = torch.as_tensor(ens_np, device=dev)
+    bgs = [ens + float(i) for i in range(CYCLES)]
+    del ens
+    psig = torch.full((p,), 1.5, device=dev)
+    rat = torch.as_tensor(ratios, device=dev)
+    pobs_e = torch.as_tensor((pback[:, None] + rng.normal(
+        0, 1, (p, N_ENS))).astype(np.float32), device=dev)
+
+    def build(cls, **kw):
+        t0 = time.perf_counter()
+        pipe = cls(grid, points, structure, max_points=10, device=dev, **kw)
+        torch.cuda.synchronize()
+        args = ", ".join(f"{k}={getattr(v, 'name', v)}" for k, v in kw.items())
+        print(f"  {cls.__name__}({args}): host set-up "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        return pipe
+
+    k5 = 0
+    for h in (0, 7):
+        pipe = build(gt.EnsiPipeline, halfwidth=h,
+                     statistic=gt.Statistic.Mean)
+        stencil.neighbourhood_members_cuda.launches = 0
+        fast = [timed(lambda: pipe.run_device(bgs[i], obs[i], psig,
+                                              assume_valid=True))
+                for i in range(CYCLES)]
+        general = [timed(lambda: pipe.run_device(bgs[i], obs[i], psig))
+                   for i in range(CYCLES)]
+        gap_out, _ = timed(lambda: pipe.run_device(bgs[0], gap, psig))
+        launches = stencil.neighbourhood_members_cuda.launches
+        n_cycles = 2 * CYCLES + 1
+        check(launches == (n_cycles if h else 0),
+              f"EnSI h={h}: {launches} K5 launches in {n_cycles} cycles")
+        for i in range(CYCLES):
+            check(torch.equal(fast[i][0][0], general[i][0][0]),
+                  f"EnSI h={h} cycle {i}: fast == general bit for bit")
+        outs = [r[0] for r in fast + general] + [gap_out]
+        check(all(bool(torch.isfinite(o).all()) for o, _ in outs)
+              and outs[0][0].shape == (n, n, N_ENS),
+              f"EnSI h={h}: every output finite, shape "
+              f"{tuple(outs[0][0].shape)}")
+        check(all(int(c) == 0 for _, c in outs),
+              f"EnSI h={h}: no condition failures in {n_cycles} cycles")
+        report(f"EnSI h={h} fast", [t for _, t in fast])
+        report(f"EnSI h={h} general", [t for _, t in general])
+        if h:
+            k5 = launches
+        del pipe, fast, general, outs, gap_out
+    for variant in ("ebesc", "ebe", "utem"):
+        pipe = build(gt.MultiEnsiPipeline, variant=variant)
+
+        def cycle(i):
+            if variant == "utem":
+                return pipe.run_device(bgs[i], obs[i], rat, bgs[i])
+            return pipe.run_device(bgs[i], pobs_e + 0.01 * i, rat,
+                                   bgs[i] if variant == "ebe" else None)
+
+        res = [timed(lambda: cycle(i)) for i in range(CYCLES)]
+        check(all(bool(torch.isfinite(o).all()) for (o, _), _ in res),
+              f"{variant}: every output finite")
+        if variant == "utem":
+            check(all(int(c) == 0 for (_, c), _ in res),
+                  "utem: no condition failures")
+        report(variant, [t for _, t in res])
+        del pipe, res
+    return k5, ens_np
 
 
 def main():
@@ -389,7 +495,21 @@ def main():
     check(bool(torch.isfinite(mem).any(dim=-1).all())
           and mem.shape == (2000, 2000, 10), "members: (2000, 2000, 10)")
 
-    # -- 7. card against CPU --
+    # -- 7. ensemble OI --
+    print(f"[ensemble OI 2000x2000x{N_ENS}, 10k obs: EnsiPipeline, "
+          "MultiEnsiPipeline]", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches["K5"], ens_np = ensemble_phase(
+        gt, stencil, dev, grid, points, background.reshape(-1)[idx], obs,
+        gap, ratios)
+    print(f"  ensemble phase {time.perf_counter() - t0:.3f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB",
+          flush=True)
+
+    # -- 8. card against CPU --
     print("[card vs CPU, 256x256 cut]", flush=True)
     m = 256
     inside = ((plats >= lats[0, 0]) & (plats <= lats[m - 1, 0])
@@ -418,6 +538,38 @@ def main():
             d = float((sub["cuda"][path] - sub["cpu"][path]).abs().max())
             check(d <= CARD_CPU_TOL, f"{gt.Statistic(stat).name} {path}: "
                                      f"card vs CPU max|d|={d:.3g}")
+    ens2 = np.ascontiguousarray(ens_np[:m, :m])
+    k = int(inside.sum())
+    pe2 = (ens2.reshape(-1, N_ENS)[g2.nearest_map(pts2.lats, pts2.lons)]
+           + np.random.default_rng(4).normal(0, 1, (k, N_ENS))).astype(
+        np.float32)
+    st2 = gt.BarnesStructure(10000.0)
+    for name, kw in (("ensi", dict(halfwidth=0)),
+                     ("ensi", dict(halfwidth=7,
+                                   statistic=gt.Statistic.Mean)),
+                     ("ebesc", dict(variant="ebesc")),
+                     ("ebe", dict(variant="ebe")),
+                     ("utem", dict(variant="utem"))):
+        sub = {}
+        for d in (dev, torch.device("cpu")):
+            if name == "ensi":
+                pipe2 = gt.EnsiPipeline(g2, pts2, st2, max_points=10,
+                                        device=d, **kw)
+                host = (ens2, po2, np.full(k, 1.5, np.float32))
+            else:
+                pipe2 = gt.MultiEnsiPipeline(g2, pts2, st2, max_points=10,
+                                             device=d, **kw)
+                host = (ens2, po2 if name == "utem" else pe2,
+                        ratios[inside]) + (() if name == "ebesc"
+                                           else (ens2,))
+            sub[d.type] = pipe2.run_device(
+                *(torch.as_tensor(a, device=d) for a in host))[0].cpu()
+        d = float((sub["cuda"] - sub["cpu"]).abs().max())
+        label = ", ".join(f"{k}={getattr(v, 'name', v)}"
+                          for k, v in kw.items())
+        check(bool(torch.isfinite(sub["cuda"]).all())
+              and d <= ENS_CARD_CPU_TOL[name],
+              f"{name} ({label}): card vs CPU max|d|={d:.3g}")
 
     sources = {"K1": ("neighbourhood_mean", f"{PALLAS}:301"),
                "K2": ("neighbourhood_minmax", f"{PALLAS}:364"),

@@ -1,12 +1,14 @@
-"""Fused post-processing pipeline: the serving path, on a torch device.
+"""Fused post-processing pipelines: the serving paths, on a torch device.
 
-The counterpart of gridpp_tpu's `Pipeline`: neighbourhood smoothing of the
-background, the background at the obs through the cached nearest map, and
-OI from a per-gridpoint shortlist of the `candidates` highest-rho
-observations that is computed once, on the host, at construction
-(ops/canonical.py). A cycle only masks the candidates whose obs are
-invalid this cycle, re-selects the top max_points among the survivors,
-solves, and adds the weighted innovations.
+The counterparts of gridpp_tpu's `Pipeline`, `EnsiPipeline` and
+`MultiEnsiPipeline`: neighbourhood smoothing of the background, the
+background at the obs through the cached nearest map, and OI from a
+per-gridpoint shortlist of the `candidates` highest-rho observations that
+is computed once, on the host, at construction (ops/canonical.py). A cycle
+only masks the candidates whose obs are invalid this cycle, re-selects the
+top max_points among the survivors, and runs the update: the
+deterministic solve, the local ensemble transform (EnSI) or one of the
+ensi_multi schemes (ebe, ebesc, utem).
 
 All geometry lives on the device given to the constructor, and a cycle's
 tensors must already be there: `run_device` raises on a tensor that is on
@@ -20,13 +22,16 @@ import torch
 from ..constants import Statistic
 from ..core.grid import Grid
 from ..core.points import Points
+from ..ops import oi_ensi_multi as mops
 from ..ops import oi_tiled as tiled_ops
+from ..ops import stencil
 from ..ops.canonical import canonical_shortlist
 from ..ops.neighbourhood import neighbourhood
 from ..ops.oi import oi_block_from_candidates
+from ..ops.oi_ensi import _s_cap, _shortlist_sweep, _table
 from .oi import _origin, _resolved_fields
 
-__all__ = ["Pipeline"]
+__all__ = ["Pipeline", "EnsiPipeline", "MultiEnsiPipeline"]
 
 _PATHS = ("auto", "fast", "general", "resolve")
 _GEOM_TYPES = {"tile_table": torch.int32, "local_idx": torch.int32,
@@ -43,7 +48,59 @@ def _as_device(device) -> torch.device:
     return dev
 
 
-class Pipeline:
+def _serve_stream(run_one, cycles):
+    """Serve an iterable of host cycles: run_one(args) queues a cycle on
+    the device and returns its output tensor. Cycle N + 1 is queued before
+    cycle N's result is copied to the host; yields numpy results in
+    order."""
+    prev = None
+    for args in cycles:
+        out = run_one(args)
+        if prev is not None:
+            yield prev.cpu().numpy()
+        prev = out
+    if prev is not None:
+        yield prev.cpu().numpy()
+
+
+def _obs_nn(grid, points, device):
+    """The flat index of each obs' nearest gridpoint, on `device`."""
+    return torch.as_tensor(
+        grid.nearest_map(points.lats, points.lons, cache_obj=points),
+        device=device).long()
+
+
+def _shortlist(grid, points, structure, max_points: int, candidates):
+    """The canonical shortlist of the `candidates` (default 2 x
+    max_points) highest-rho obs of every gridpoint, and its width k_cap.
+    Its order and rho bits are gridpp_tpu's (ops/canonical.py)."""
+    n_obs = points.size()
+    if candidates is None:
+        candidates = 2 * max_points if max_points > 0 else n_obs
+    k_cap = max(1, min(int(candidates), n_obs))
+    return canonical_shortlist(grid.to_points(), points, structure,
+                               k_cap), k_cap
+
+
+class _OnDevice:
+    """A pipeline whose state lives on `self.device`."""
+
+    def _check(self, t, name):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != self.device:
+            raise ValueError(f"{name} is on {t.device}; this "
+                             f"{type(self).__name__} runs on {self.device}")
+
+    def _upload(self, *arrays):
+        """numpy arrays -> f32 tensors on this device, and whether every
+        value is finite (checked on the host: no device round trip)."""
+        host = [np.asarray(a, np.float32) for a in arrays]
+        ok = all(bool(np.isfinite(a).all()) for a in host)
+        return [torch.as_tensor(a, device=self.device) for a in host], ok
+
+
+class Pipeline(_OnDevice):
     """Neighbourhood-smooth + deterministic OI, fused on one device.
 
     Parameters mirror gridpp_tpu.Pipeline:
@@ -80,20 +137,12 @@ class Pipeline:
         self.statistic = int(statistic)
         self.max_points = int(max_points)
         self.allow = bool(allow_extrapolation)
-        bpoints = grid.to_points()
-        origin = _origin(bpoints)
-        self._obs_nn = torch.as_tensor(
-            grid.nearest_map(points.lats, points.lons, cache_obj=points),
-            device=self.device).long()
+        origin = _origin(grid.to_points())
+        self._obs_nn = _obs_nn(grid, points, self.device)
         n = self.shape[0] * self.shape[1]
-        n_obs = points.size()
-        if candidates is None:
-            candidates = 2 * self.max_points if self.max_points > 0 else n_obs
-        k_cap = max(1, min(int(candidates), n_obs))
-
-        # One-time canonical host selection: the stored order and rho bits
-        # are identical to gridpp_tpu's (ops/canonical.py).
-        sl = canonical_shortlist(bpoints, points, structure, k_cap)
+        # one-time host selection
+        sl, k_cap = _shortlist(grid, points, structure, self.max_points,
+                               candidates)
 
         self._static_w = None
         self._gw_state = None
@@ -250,13 +299,6 @@ class Pipeline:
         return tiled_ops.untile_fields(out_t, self._geom)
 
     # -- entry points -------------------------------------------------------
-    def _check(self, t, name):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if t.device != self.device:
-            raise ValueError(f"{name} is on {t.device}; this Pipeline runs "
-                             f"on {self.device}")
-
     def _ratios(self, pratios):
         if pratios is None:
             pratios = self._init_ratios
@@ -313,33 +355,242 @@ class Pipeline:
                 return self._run_fast(background, pobs)
         return self._run(background, pobs, self._ratios(pratios))
 
-    def _upload(self, background, pobs):
-        bg = np.asarray(background, np.float32)
-        po = np.asarray(pobs, np.float32)
-        ok = bool(np.isfinite(po).all() and np.isfinite(bg).all())
-        return (torch.as_tensor(bg, device=self.device),
-                torch.as_tensor(po, device=self.device), ok)
-
     def __call__(self, background, pobs, pratios=None):
         """numpy in, numpy out: background (Y, X), pobs/pratios (P,).
         pratios may be omitted when the Pipeline was built with ratios."""
-        bg, po, ok = self._upload(background, pobs)
+        (bg, po), ok = self._upload(background, pobs)
         return self.run_device(bg, po, pratios, assume_valid=ok).cpu().numpy()
 
     def serve_stream(self, cycles):
         """Serve an iterable of host cycles (background, pobs[, pratios]);
-        yields (Y, X) numpy analyses in order. Cycle N + 1 is queued on the
-        device before cycle N's result is copied to the host."""
+        yields (Y, X) numpy analyses in order (see _serve_stream)."""
         def run_one(args):
-            bg, po, ok = self._upload(args[0], args[1])
+            (bg, po), ok = self._upload(args[0], args[1])
             pr = args[2] if len(args) > 2 else None
             return self.run_device(bg, po, pr, assume_valid=ok)
 
-        prev = None
-        for args in cycles:
-            out = run_one(args)
-            if prev is not None:
-                yield prev.cpu().numpy()
-            prev = out
-        if prev is not None:
-            yield prev.cpu().numpy()
+        return _serve_stream(run_one, cycles)
+
+
+class _EnsembleBase(_OnDevice):
+    """Shared set-up of the ensemble pipelines: the obs nearest map and the
+    canonical shortlist (sel, rho, valid), each (N, K) on the device."""
+
+    def __init__(self, grid: Grid, points: Points, structure, max_points,
+                 allow_extrapolation, block, candidates, device):
+        self.device = _as_device(device)
+        self.grid = grid
+        self.points = points
+        self.structure = structure
+        self.shape = tuple(grid.size())
+        self.max_points = int(max_points)
+        self.allow = bool(allow_extrapolation)
+        self.block = int(block)
+        self._n = self.shape[0] * self.shape[1]
+        self._obs_nn = _obs_nn(grid, points, self.device)
+        sl, k_cap = _shortlist(grid, points, structure, self.max_points,
+                               candidates)
+        self._s_cap = _s_cap(self.max_points, k_cap)
+        self._cand = (torch.as_tensor(sl.sel, device=self.device).long(),
+                      torch.as_tensor(sl.rho, device=self.device),
+                      torch.as_tensor(sl.valid, device=self.device))
+
+    def _check_field(self, t, name):
+        self._check(t, name)
+        if t.dim() != 3 or tuple(t.shape[:2]) != self.shape:
+            raise ValueError(f"{name} must be (Y, X, E) with (Y, X) = "
+                             f"{self.shape}, got {tuple(t.shape)}")
+
+
+class EnsiPipeline(_EnsembleBase):
+    """Ensemble OI (EnSI) serving path on one device (gridpp_tpu
+    EnsiPipeline).
+
+    A forecast cycle takes the member fields (Y, X, E) and the obs vectors,
+    smooths every member (halfwidth > 0), gathers the background at the obs
+    through the cached nearest map, masks the shortlist candidates whose obs
+    are invalid, re-selects the top max_points and runs the local ensemble
+    transform (ops/oi_ensi). Matches optimal_interpolation_ensi whenever
+    >= max_points shortlist candidates carry valid obs (candidates >
+    max_points is the slack).
+
+    Smoothing, by statistic: Mean/Sum/Count/Min/Max are one launch of the
+    member stencil K5 on the (Y, X, E) field (ops.stencil.
+    neighbourhood_members); Std/Variance one batched K3 launch on the
+    (E, Y, X) planes; other statistics the plain brute force. A statistic
+    gridpp_tpu rejects (Quantile without a level, RandomChoice) raises on
+    the first cycle, as there.
+
+    block: gridpoints per batch of the transform; the result does not
+    depend on it. device: where the shortlist lives and every cycle runs.
+    """
+
+    def __init__(self, grid: Grid, points: Points, structure,
+                 halfwidth: int = 0, statistic: int = Statistic.Mean,
+                 max_points: int = 10, allow_extrapolation: bool = True,
+                 block: int = 1 << 20, candidates: int | None = None, *,
+                 device):
+        super().__init__(grid, points, structure, max_points,
+                         allow_extrapolation, block, candidates, device)
+        self.halfwidth = int(halfwidth)
+        self.statistic = int(statistic)
+        # Static-prefix selection for the all-valid fast path: the
+        # shortlist is sorted by rho, so with every obs valid the per-cycle
+        # re-selection returns exactly its first s_cap entries
+        self._cand_fast = tuple(t[:, :self._s_cap].contiguous()
+                                for t in self._cand)
+
+    def _smooth(self, background):
+        h, stat = self.halfwidth, self.statistic
+        if h == 0:
+            return background
+        if stat in stencil.MEMBER_STATS:
+            return stencil.neighbourhood_members(background, h, stat)
+        planes = background.permute(2, 0, 1)
+        return neighbourhood(planes, h, stat).permute(1, 2, 0)
+
+    def run_device(self, background, pobs, psigmas, assume_valid=False):
+        """One cycle, device to device: background (Y, X, E), pobs/psigmas
+        (P,) f32 tensors on this pipeline's device. Returns (analysis
+        (Y, X, E), n_cond_failures), the count a device scalar (no host
+        sync).
+
+        assume_valid=True asserts every obs, sigma and background value is
+        finite this cycle; the re-selection then reduces to the shortlist
+        prefix (bit-identical output)."""
+        self._check_field(background, "background")
+        self._check(pobs, "pobs")
+        self._check(psigmas, "psigmas")
+        e = background.shape[2]
+        # contiguous rows: torch's CPU reductions over E vectorise a strided
+        # layout by shape, and a row's result must not depend on the block
+        flat = self._smooth(background).reshape(self._n, e).contiguous()
+        pback = flat[self._obs_nn]  # (P, E)
+        fin = torch.isfinite(pback)
+        cnt = fin.sum(dim=1)
+        y_hat = torch.where(
+            cnt > 0, torch.where(fin, pback, 0.0).sum(dim=1)
+            / torch.clamp(cnt, min=1), torch.nan)
+        y_anom = torch.where(fin & torch.isfinite(y_hat)[:, None],
+                             pback - y_hat[:, None], pback)
+        out, cond_bad = _shortlist_sweep(
+            self._cand_fast if assume_valid else self._cand, flat,
+            _table(pobs, psigmas, y_hat, y_anom), torch.isfinite(pobs),
+            self._s_cap, self.block, self.allow, prefix=assume_valid)
+        return out.reshape(self.shape + (e,)), cond_bad.sum()
+
+    def __call__(self, background, pobs, psigmas):
+        """numpy in, numpy out (one upload, one download)."""
+        args, ok = self._upload(background, pobs, psigmas)
+        return self.run_device(*args, assume_valid=ok)[0].cpu().numpy()
+
+    def serve_stream(self, cycles):
+        """Serve an iterable of host cycles (background, pobs, psigmas);
+        yields (Y, X, E) numpy analyses in order (see _serve_stream)."""
+        def run_one(args):
+            arrays, ok = self._upload(*args)
+            return self.run_device(*arrays, assume_valid=ok)[0]
+
+        return _serve_stream(run_one, cycles)
+
+
+_VARIANTS = ("ebe", "ebesc", "utem")
+
+
+class MultiEnsiPipeline(_EnsembleBase):
+    """Serving path of the ensi_multi family (ebe/ebesc/utem) on one device
+    (gridpp_tpu MultiEnsiPipeline).
+
+    Same shortlist design as EnsiPipeline; each cycle gathers the
+    background (and background_corr) at the obs through the cached nearest
+    map, builds one packed per-obs table, masks candidates with invalid
+    obs, re-selects the top max_points and runs the member update (ebe,
+    ebesc) or the ETKF transform (utem) of ops/oi_ensi_multi. Matches the
+    host API (optimal_interpolation_ensi_multi_*) when every member is
+    valid at every gridpoint and >= max_points shortlist candidates carry
+    valid obs.
+
+    bratios: (Y, X) background error ratios, default 1.
+    """
+
+    def __init__(self, grid: Grid, points: Points, structure,
+                 variant: str = "ebesc", max_points: int = 10,
+                 allow_extrapolation: bool = True, block: int = 1 << 20,
+                 candidates: int | None = None, bratios=None, *, device):
+        if variant not in _VARIANTS:
+            raise ValueError("variant must be one of ebe/ebesc/utem")
+        super().__init__(grid, points, structure, max_points,
+                         allow_extrapolation, block, candidates, device)
+        self.variant = variant
+        if bratios is None:
+            br = np.ones(self._n, np.float32)
+        else:
+            br = np.asarray(bratios, np.float32).reshape(-1)
+            if br.shape[0] != self._n:
+                raise ValueError("Bratios and grid size mismatch")
+        self._bratios = torch.as_tensor(br, device=self.device)
+        obs_fields = _resolved_fields(points, structure,
+                                      _origin(grid.to_points()))
+        self._field_keys = tuple(obs_fields)
+        self._obs_tab_fields = torch.as_tensor(
+            np.stack([obs_fields[k] for k in self._field_keys], axis=1),
+            device=self.device)  # (P, F)
+
+    def run_device(self, background, pobs, pratios, background_corr=None):
+        """One cycle, device to device.
+
+        background: (Y, X, E). pobs: (P, E) for ebe/ebesc, (P,) for utem.
+        pratios: (P,). background_corr: (Y, X, E), required for ebe and
+        utem (the dynamic-correlation ensemble); ignored for ebesc.
+        Returns (analysis (Y, X, E), n_condition_failures device scalar).
+        """
+        if self.variant != "ebesc" and background_corr is None:
+            raise ValueError(f"background_corr required for {self.variant}")
+        self._check_field(background, "background")
+        self._check(pobs, "pobs")
+        self._check(pratios, "pratios")
+        e = background.shape[2]
+        bg = background.reshape(self._n, e).contiguous()  # see EnsiPipeline
+        bgc = None
+        if self.variant != "ebesc":
+            self._check_field(background_corr, "background_corr")
+            bgc = background_corr.reshape(self._n, e).contiguous()
+        pback = bg[self._obs_nn]  # (P, E)
+        if self.variant == "utem":
+            y_hat = pback.mean(dim=1)
+            y_anom = torch.where(torch.isfinite(y_hat)[:, None],
+                                 pback - y_hat[:, None], 0.0)
+            tab = torch.cat([pobs[:, None], pratios[:, None], y_hat[:, None],
+                             y_anom, mops.norm_anom(bgc[self._obs_nn])],
+                            dim=1)
+            out, n_cond = mops.utem_serve_sweep(
+                bg, bgc, self._bratios, tab, torch.isfinite(pobs),
+                self._cand, self._s_cap, self.block, self.allow)
+        else:
+            cols = [self._obs_tab_fields, pratios[:, None], pobs - pback]
+            x_l = None
+            if bgc is not None:  # ebe
+                x_l = mops.norm_anom(bgc)
+                cols.append(mops.norm_anom(bgc[self._obs_nn]))
+            out = mops.member_serve_sweep(
+                self.structure, self._field_keys, bg, self._bratios, x_l,
+                torch.cat(cols, dim=1), torch.isfinite(pobs[:, 0]),
+                self._cand, self._s_cap, self.block, self.allow)
+            n_cond = torch.zeros((), dtype=torch.int64, device=self.device)
+        return out.reshape(self.shape + (e,)), n_cond
+
+    def __call__(self, background, pobs, pratios, background_corr=None):
+        """numpy in, numpy out (one upload, one download)."""
+        return self._run_host(background, pobs, pratios,
+                              background_corr).cpu().numpy()
+
+    def _run_host(self, background, pobs, pratios, background_corr=None):
+        extra = () if background_corr is None else (background_corr,)
+        args, _ = self._upload(background, pobs, pratios, *extra)
+        return self.run_device(*args)[0]
+
+    def serve_stream(self, cycles):
+        """Serve an iterable of host cycles (background, pobs, pratios[,
+        background_corr]); yields (Y, X, E) numpy analyses in order (see
+        _serve_stream)."""
+        return _serve_stream(lambda args: self._run_host(*args), cycles)

@@ -211,6 +211,9 @@ class StructureFunction:
     def corr_torch(self, p1: dict, p2: dict):
         return self._corr(_TorchWrap, torch, p1, p2)
 
+    def corr_background_torch(self, p1: dict, p2: dict):
+        return self._corr_background(_TorchWrap, torch, p1, p2)
+
     # ---- internals ------------------------------------------------------
     def _corr(self, xp, mod, p1, p2):
         raise NotImplementedError

@@ -72,5 +72,37 @@ def obs_values(prob, grid):
     return pback, pobs
 
 
+def ens_problem(seed, n=30, n_obs=50, e=6, nan_obs=0.2, span=3.0):
+    """A randomized ensemble network (tests/test_pipeline_consistency.py:
+    202-221): an n x n grid over 55-(55+span)N 5-(5+span)E, members
+    normal(280, 5), a correlation ensemble beside it, background at the
+    obs through the nearest map, obs = member mean + noise with a share
+    missing, perturbed obs (P, E) for ebe/ebesc, sigmas 1.5, ratios 0.1."""
+    rng = np.random.default_rng(seed)
+    lats, lons = np.meshgrid(np.linspace(55, 55 + span, n),
+                             np.linspace(5, 5 + span, n), indexing="ij")
+    plats = rng.uniform(55, 55 + span, n_obs)
+    plons = rng.uniform(5, 5 + span, n_obs)
+    background = rng.normal(280, 5, (n, n, e)).astype(np.float32)
+    background_corr = (background + rng.normal(0, 1, background.shape)
+                       ).astype(np.float32)
+    idx = gt.Grid(lats, lons).nearest_map(plats, plons)
+    pback = background.reshape(-1, e)[idx]
+    pbackc = background_corr.reshape(-1, e)[idx]
+    pobs = (pback.mean(axis=1) + rng.normal(0, 2, n_obs)).astype(np.float32)
+    pobs_e = (pback + rng.normal(0, 1, (n_obs, e))).astype(np.float32)
+    drop = rng.random(n_obs) < nan_obs
+    pobs[drop] = np.nan
+    pobs_e[drop] = np.nan
+    return dict(lats=lats, lons=lons, plats=plats, plons=plons,
+                pelev=np.zeros(n_obs), plaf=np.zeros(n_obs), gelev=None,
+                glaf=None, background=background,
+                background_corr=background_corr, pback=pback,
+                pbackc=pbackc, pobs=pobs, pobs_e=pobs_e,
+                psig=np.full(n_obs, 1.5, np.float32),
+                ratios=np.full(n_obs, 0.1, np.float32),
+                bratios=np.ones((n, n), np.float32))
+
+
 def tensor(a, device="cpu"):
     return torch.as_tensor(np.asarray(a), device=device)

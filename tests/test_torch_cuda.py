@@ -1,11 +1,14 @@
-"""Kernels K1-K5 and the Pipeline on a CUDA card (skipped without one).
+"""Kernels K1-K5 and the serving pipelines on a CUDA card (skipped without
+one).
 
 Each kernel is held to its plain PyTorch version on the same card, at the
 bars of tests/test_pallas_stencil.py: K1 and K5's Mean/Sum/Count rtol 1e-5,
 atol 1e-4 (:36-38, :199); K2 and K5's Min/Max bit for bit (order-free);
 K3 rtol 2e-5, atol 2e-3 (:220); K4 rtol/atol 1e-5 (:67) and bit for bit on
 exact cdf ties (:70-85). Every kernel's launch counter moves by one per
-launch.
+launch. The pipelines on the card agree with their CPU runs (the plain
+versions): Pipeline within 1e-3, EnsiPipeline and utem within 2e-3, ebe and
+ebesc within 1e-3; an EnSI cycle smoothed with Mean launches K5 once.
 
 This file imports no jax, so it also runs on a machine with the card and
 no JAX installed:
@@ -206,3 +209,86 @@ def test_pipeline_on_card(dev, stat):
                                    rtol=0, atol=1e-3)
     with pytest.raises(ValueError, match="runs on cuda"):
         card.run_device(torch.as_tensor(bg), torch.as_tensor(pobs))
+
+
+def _ens_problem(seed=9, n=64, n_obs=100, e=5):
+    rng = np.random.default_rng(seed)
+    lats, lons = np.meshgrid(np.linspace(55, 57, n), np.linspace(5, 7, n),
+                             indexing="ij")
+    grid = gt.Grid(lats, lons)
+    pts = gt.Points(rng.uniform(55, 57, n_obs), rng.uniform(5, 7, n_obs),
+                    np.zeros(n_obs), np.zeros(n_obs))
+    bg = rng.normal(280, 5, (n, n, e)).astype(np.float32)
+    bgc = (bg + rng.normal(0, 1, bg.shape)).astype(np.float32)
+    pback = bg.reshape(-1, e)[grid.nearest_map(pts.lats, pts.lons)]
+    pobs = (pback.mean(axis=1) + rng.normal(0, 2, n_obs)).astype(np.float32)
+    pobs_e = (pback + rng.normal(0, 1, (n_obs, e))).astype(np.float32)
+    return grid, pts, bg, bgc, pobs, pobs_e
+
+
+@pytest.mark.parametrize("halfwidth", [0, 7])
+def test_ensi_pipeline_on_card(dev, halfwidth):
+    """EnSI on the card: one K5 launch per smoothed cycle, the all-valid
+    fast path equal to the general path bit for bit, no condition
+    failures, and the card within 2e-3 of the CPU's plain versions."""
+    grid, pts, bg, _, pobs, _ = _ens_problem()
+    kw = dict(halfwidth=halfwidth, statistic=gt.Mean, max_points=10)
+    card = gt.EnsiPipeline(grid, pts, gt.BarnesStructure(30000.0),
+                           device=dev, **kw)
+    cpu = gt.EnsiPipeline(grid, pts, gt.BarnesStructure(30000.0),
+                          device="cpu", **kw)
+    psig = np.full(pobs.size, 1.5, np.float32)
+    gap = pobs.copy()
+    gap[::3] = np.nan
+    for po, fast in ((pobs, True), (gap, False)):
+        args = [torch.as_tensor(a, device=dev) for a in (bg, po, psig)]
+        before = stencil.neighbourhood_members_cuda.launches
+        out, n_cond = card.run_device(*args, assume_valid=fast)
+        torch.cuda.synchronize()
+        assert stencil.neighbourhood_members_cuda.launches \
+            == before + (halfwidth > 0)
+        assert n_cond.device == dev and int(n_cond) == 0
+        assert bool(torch.isfinite(out).all())
+        if fast:
+            assert torch.equal(out, card.run_device(*args)[0])
+        want, _ = cpu.run_device(*(torch.as_tensor(a) for a in (bg, po,
+                                                                psig)))
+        np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=2e-3)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        card.run_device(torch.as_tensor(bg), torch.as_tensor(pobs),
+                        torch.as_tensor(psig))
+
+
+@pytest.mark.parametrize("variant,tol", [("ebe", 1e-3), ("ebesc", 1e-3),
+                                         ("utem", 2e-3)])
+def test_multi_pipeline_on_card(dev, variant, tol):
+    grid, pts, bg, bgc, pobs, pobs_e = _ens_problem(seed=10)
+    po = pobs if variant == "utem" else pobs_e
+    ratios = np.full(pobs.size, 0.1, np.float32)
+    kw = dict(variant=variant, max_points=10)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        pipe = gt.MultiEnsiPipeline(grid, pts, gt.BarnesStructure(30000.0),
+                                    device=d, **kw)
+        out, n_cond = pipe.run_device(
+            *(torch.as_tensor(a, device=d) for a in (bg, po, ratios, bgc)))
+        assert int(n_cond) == 0
+        outs[d.type] = out.cpu().numpy()
+    assert np.isfinite(outs["cuda"]).all()
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=0, atol=tol)
+
+
+def test_ensemble_transform_refuses_tf32(dev):
+    grid, pts, bg, _, pobs, _ = _ens_problem(n=16, n_obs=20)
+    pipe = gt.EnsiPipeline(grid, pts, gt.BarnesStructure(30000.0),
+                           device=dev)
+    args = [torch.as_tensor(a, device=dev)
+            for a in (bg, pobs, np.full(pobs.size, 1.5, np.float32))]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            pipe.run_device(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    pipe.run_device(*args)

@@ -12,6 +12,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, gridpp_tpu_torch\n"
+            "import gridpp_tpu_torch.ops.oi_ensi\n"
+            "import gridpp_tpu_torch.ops.oi_ensi_multi\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
             "                                            'gridpp_tpu.')))\n"
@@ -28,7 +30,8 @@ def test_import_pulls_in_no_jax():
     "SoarStructure", "ToarStructure", "PowerlawStructure",
     "LinearStructure", "MultipleStructure", "CrossValidation",
     "StructureFunction", "Statistic", "Mean", "Sum", "Count", "Min", "Max",
-    "Std", "Variance", "Median", "Pipeline", "neighbourhood",
+    "Std", "Variance", "Median", "Pipeline", "EnsiPipeline",
+    "MultiEnsiPipeline", "neighbourhood",
     "neighbourhood_brute_force", "neighbourhood_quantile",
     "neighbourhood_quantile_fast", "get_neighbourhood_thresholds",
     "neighbourhood_ens", "neighbourhood_quantile_ens",
