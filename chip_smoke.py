@@ -1,5 +1,5 @@
-"""Smoke run of gridpp_tpu_torch's serving and neighbourhood-statistics
-paths on one CUDA card.
+"""Smoke run of gridpp_tpu_torch's serving, neighbourhood-statistics and
+OI API paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -48,7 +48,29 @@ Run from the root of a checkout. In order it:
 8. runs a 256 x 256 cut of the same problem on the card and on the CPU
    (plain versions): Pipeline smoothed with Mean, Max and Std (max|d| <=
    1e-3), EnsiPipeline at h=0 and with Mean h=7 and MultiEnsiPipeline utem
-   (max|d| <= 2e-3), ebe and ebesc (max|d| <= 1e-3).
+   (max|d| <= 2e-3), ebe and ebesc (max|d| <= 1e-3);
+9. gridpp's OI numpy API through its device route (the api modules'
+   functions called under the card as torch's default device), on phase
+   7's grid, obs and structure objects, so the cached canonical shortlist
+   is shared: optimal_interpolation with every obs valid and with ~1%
+   missing takes the shortlist route (the dense sweep is counted and must
+   not run), is finite and within 1e-2 of Pipeline(halfwidth=0) `resolve`
+   at every cell (tests/test_parity_dense.py:10); optimal_interpolation_
+   full's analysis variance is finite and at most bvariance + 1e-5; with
+   the obs of a 1 x 1 degree box dropped, truncated shortlist rows starve
+   and the dense all-obs sweep runs (timed): on the rows not starved at
+   least 99.9% of the cells lie within 1e-2 of `resolve`;
+   optimal_interpolation_ensi on the 2000 x 2000 x 10 ensemble against
+   EnsiPipeline(halfwidth=0) and ebesc, ebe and utem against
+   MultiEnsiPipeline, max|d| < 1e-2 (tests/test_parity_dense.py:65, :101).
+   Prints the median of 3 numpy calls of each function (wall clock, host
+   preparation and transfers included) with its device sweep's share,
+   beside the matching pipeline cycle, and the phase's peak device memory.
+   On the 256 x 256 cut, each of the six functions through the card's
+   device route, on the shortlist and with two thirds of the obs dropped
+   (the starved fallback), against the port's top-level host-pinned
+   function (the native C++ solvers on the CPU): max|d| < 1e-2, with the
+   share of cells within 2e-4 printed.
 
 Any failed check raises. The line before the last is a JSON record of the
 kernels; the last line is {"ok": true, "device": {...}}.
@@ -186,7 +208,8 @@ def report(name, times):
 
 def ensemble_phase(gt, stencil, dev, grid, points, pback, obs, gap, ratios):
     """Phase 7. Returns (K5's launches on the smoothed EnSI path, the
-    numpy ensemble)."""
+    numpy ensemble, the structure object every ensemble pipeline
+    shared)."""
     rng = np.random.default_rng(3)
     n, p = grid.size()[0], points.size()
     # one structure object: canonical_shortlist's cache (keyed on its id)
@@ -257,7 +280,279 @@ def ensemble_phase(gt, stencil, dev, grid, points, pback, obs, gap, ratios):
                   "utem: no condition failures")
         report(variant, [t for _, t in res])
         del pipe, res
-    return k5, ens_np
+    return k5, ens_np, structure
+
+
+API_TOL = 1e-2      # tests/test_parity_dense.py:10, :37, :65, :101
+API_CLOSE = 2e-4    # the share of cells this close is printed
+API_DENSE_SHARE = 0.999
+API_FUNCS = ("oi", "full", "ensi", "ebe", "ebesc", "utem")
+
+
+def instrument(module, name, stats):
+    """Replace module.name by a wrapper that counts its calls and adds its
+    wall time, up to a synchronised device, to stats[name] = [calls, s]."""
+    real = getattr(module, name)
+    stats[name] = [0, 0.0]
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        stats[name][0] += 1
+        stats[name][1] += time.perf_counter() - t
+        return out
+
+    setattr(module, name, wrapper)
+
+
+def starved_rows(grid, points, structure, pobs, max_points=10):
+    """Rows whose canonical shortlist is truncated and keeps fewer than
+    max_points valid obs under pobs (the device route's fallback
+    condition, api/oi.py)."""
+    from gridpp_tpu_torch.ops.canonical import canonical_shortlist
+    sl = canonical_shortlist(grid.to_points(), points, structure,
+                             2 * max_points)
+    cnt = (np.isfinite(pobs)[sl.sel] & sl.valid).sum(axis=1)
+    return sl.truncated & (cnt < max_points)
+
+
+def api_calls(grid, points, structure, bg, ens, ratios, idx, owners):
+    """The six OI API functions on one network: name -> fn(pobs, pobs_e)
+    calling the function of owners[name] (the port's top level or its api
+    module); pobs_e are the perturbed obs (P, E) of ebe and ebesc."""
+    e = ens.shape[2]
+    pback = bg.reshape(-1)[idx]
+    pback_e = ens.reshape(-1, e)[idx]
+    bratios = np.ones(bg.shape, np.float32)
+    psig = np.full(points.size(), 1.5, np.float32)
+    ones = np.ones(bg.shape, np.float32)
+    pones = np.ones(points.size(), np.float32)
+    return {
+        "oi": lambda po, pe: owners["oi"].optimal_interpolation(
+            grid, bg, points, po, ratios, pback, structure, 10),
+        "full": lambda po, pe: owners["full"].optimal_interpolation_full(
+            grid, bg, ones, points, po, ratios, pback, pones, structure,
+            10),
+        "ensi": lambda po, pe: owners["ensi"].optimal_interpolation_ensi(
+            grid, ens, points, po, psig, pback_e, structure, 10),
+        "ebe": lambda po, pe: owners["ebe"].
+        optimal_interpolation_ensi_multi_ebe(
+            grid, bratios, ens, ens, points, pe, ratios, pback_e, pback_e,
+            structure, 10),
+        "ebesc": lambda po, pe: owners["ebesc"].
+        optimal_interpolation_ensi_multi_ebesc(
+            grid, bratios, ens, points, pe, ratios, pback_e, structure, 10),
+        "utem": lambda po, pe: owners["utem"].
+        optimal_interpolation_ensi_multi_utem(
+            grid, bratios, ens, ens, points, po, ratios, pback_e, pback_e,
+            structure, 10),
+    }
+
+
+def api_phase(gt, dev, grid, points, structure, background, pobs, ratios,
+              idx, ens_np, cut):
+    """Phase 9: gridpp's OI numpy API through its device route (the api
+    modules' functions under the card as torch's default device)."""
+    from gridpp_tpu_torch.api import oi as tapi
+    from gridpp_tpu_torch.api import oi_ensi as tensi
+    from gridpp_tpu_torch.api import oi_ensi_multi as tmulti
+    stats = {}
+    for mod, names in (
+            (tapi, ("_oi_points_dense", "oi_shortlist_sweep",
+                    "oi_dense_sweep", "oi_gather_block")),
+            (tensi, ("ensi_shortlist_sweep", "ensi_dense_sweep",
+                     "ensi_kernel")),
+            (tmulti, ("member_serve_sweep", "utem_serve_sweep",
+                      "ebe_kernel", "ebesc_kernel", "utem_kernel"))):
+        for name in names:
+            instrument(mod, name, stats)
+
+    def reset():
+        for v in stats.values():
+            v[:] = [0, 0.0]
+
+    def count(*names):
+        return sum(stats[n][0] for n in names)
+
+    sweeps = {"oi": ("oi_shortlist_sweep",), "full": ("oi_shortlist_sweep",),
+              "ensi": ("ensi_shortlist_sweep",),
+              "ebe": ("member_serve_sweep",),
+              "ebesc": ("member_serve_sweep",),
+              "utem": ("utem_serve_sweep",)}
+    fallbacks = {"oi": ("_oi_points_dense", "oi_gather_block"),
+                 "full": ("_oi_points_dense", "oi_gather_block"),
+                 "ensi": ("ensi_dense_sweep", "ensi_kernel"),
+                 "ebe": ("ebe_kernel",), "ebesc": ("ebesc_kernel",),
+                 "utem": ("utem_kernel",)}
+    module_of = {"oi": tapi, "full": tapi, "ensi": tensi, "ebe": tmulti,
+                 "ebesc": tmulti, "utem": tmulti}
+
+    def on_card(fn):
+        def run(*args):
+            with torch.device(dev):
+                return fn(*args)
+        return run
+
+    n, p, e = grid.size()[0], points.size(), ens_np.shape[2]
+    rng = np.random.default_rng(6)
+    pback_e = ens_np.reshape(-1, e)[idx]
+    pobs_e = (pback_e + rng.normal(0, 1, (p, e))).astype(np.float32)
+    card = {k: on_card(f) for k, f in api_calls(
+        grid, points, structure, background, ens_np, ratios, idx,
+        module_of).items()}
+    rat = torch.as_tensor(ratios, device=dev)
+
+    # -- the deterministic OI against Pipeline(halfwidth=0) resolve --
+    t0 = time.perf_counter()
+    pipe = gt.Pipeline(grid, points, structure, halfwidth=0, max_points=10,
+                       ratios=ratios, device=dev)
+    torch.cuda.synchronize()
+    print(f"  Pipeline(halfwidth=0) on the shared shortlist: host set-up "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    bg_t = torch.as_tensor(background, device=dev)
+
+    def resolve(po):
+        return pipe.run_device(bg_t, torch.as_tensor(po, device=dev), rat,
+                               path="resolve").cpu().numpy()
+
+    few = pobs.copy()
+    few[::97] = np.nan
+    check(not starved_rows(grid, points, structure, few).any(),
+          f"{int(np.isnan(few).sum())} obs missing starve no row")
+    for label, po in (("all obs valid", pobs), ("a few obs missing", few)):
+        reset()
+        out = card["oi"](po, pobs_e)
+        check(count("_oi_points_dense") == 0
+              and count("oi_shortlist_sweep") == 1,
+              f"optimal_interpolation ({label}): the shortlist route "
+              "(_oi_points_dense not called)")
+        check(bool(np.isfinite(out).all()) and out.shape == (n, n),
+              f"optimal_interpolation ({label}): finite, {out.shape}")
+        d = float(np.abs(out - resolve(po)).max())
+        check(d < API_TOL, f"optimal_interpolation ({label}) vs Pipeline "
+                           f"resolve: max|d|={d:.3g} at every cell")
+    out, avar = card["full"](pobs, pobs_e)
+    check(bool(np.isfinite(avar).all()) and float(avar.max()) <= 1.0 + 1e-5,
+          f"optimal_interpolation_full: analysis variance finite and <= "
+          f"bvariance + 1e-5 (max {float(avar.max()):.6f})")
+
+    # -- the starved fallback: the dense all-obs sweep --
+    gap = pobs.copy()
+    plats, plons = points.lats, points.lons
+    gap[(plats > 58.0) & (plats < 59.0) & (plons > 8.0) & (plons < 9.0)] = \
+        np.nan
+    starved = starved_rows(grid, points, structure, gap).reshape(n, n)
+    check(bool(starved.any()), f"{int(np.isnan(gap).sum())} obs dropped in "
+                               f"a box starve {int(starved.sum())} rows")
+    reset()
+    dense_out, dense_s = timed(lambda: card["oi"](gap, pobs_e))
+    check(count("_oi_points_dense") == 1 and count("oi_dense_sweep") == 1,
+          f"starved call: the dense sweep ran ({dense_s:.3f} s wall, "
+          f"sweep {stats['oi_dense_sweep'][1]:.3f} s)")
+    d = np.abs(dense_out - resolve(gap))[~starved]
+    share = float((d < API_TOL).mean())
+    check(bool(np.isfinite(dense_out).all()) and share >= API_DENSE_SHARE,
+          f"dense vs resolve on the {int((~starved).sum())} rows not "
+          f"starved: {share:.6f} of cells within {API_TOL}, max|d|="
+          f"{float(d.max()):.3g}")
+
+    # -- the ensemble functions against their pipelines --
+    ens_t = torch.as_tensor(ens_np, device=dev)
+    obs_t = torch.as_tensor(pobs, device=dev)
+    psig_t = torch.full((p,), 1.5, device=dev)
+    pe_t = torch.as_tensor(pobs_e, device=dev)
+    ensi_pipe = gt.EnsiPipeline(grid, points, structure, halfwidth=0,
+                                max_points=10, device=dev)
+    cycles = {"oi": lambda: pipe.run_device(bg_t, obs_t, rat,
+                                            path="resolve"),
+              "ensi": lambda: ensi_pipe.run_device(ens_t, obs_t, psig_t)}
+    reset()
+    out = card["ensi"](pobs, pobs_e)
+    want, n_cond = cycles["ensi"]()
+    d = float(np.abs(out - want.cpu().numpy()).max())
+    check(count("ensi_shortlist_sweep") == 1 and count(*fallbacks["ensi"])
+          == 0 and int(n_cond) == 0 and bool(np.isfinite(out).all())
+          and d < API_TOL,
+          f"optimal_interpolation_ensi vs EnsiPipeline(halfwidth=0) "
+          f"general: max|d|={d:.3g} (bit for bit: "
+          f"{bool(np.array_equal(out, want.cpu().numpy()))})")
+    del want
+    for variant in ("ebesc", "ebe", "utem"):
+        mpipe = gt.MultiEnsiPipeline(grid, points, structure,
+                                     variant=variant, max_points=10,
+                                     device=dev)
+        po = obs_t if variant == "utem" else pe_t
+        corr = None if variant == "ebesc" else ens_t
+        cycles[variant] = (lambda m=mpipe, po=po, corr=corr:
+                           m.run_device(ens_t, po, rat, corr))
+        reset()
+        out = card[variant](pobs, pobs_e)
+        want = cycles[variant]()[0].cpu().numpy()
+        d = float(np.abs(out - want).max())
+        check(count(*sweeps[variant]) == 1
+              and count(*fallbacks[variant]) == 0
+              and bool(np.isfinite(out).all()) and d < API_TOL,
+              f"optimal_interpolation_ensi_multi_{variant} vs "
+              f"MultiEnsiPipeline({variant}): max|d|={d:.3g} (bit for bit: "
+              f"{bool(np.array_equal(out, want))})")
+        del want
+
+    # -- call times: numpy in and out, wall clock --
+    for name in API_FUNCS:
+        reset()
+        times = [timed(lambda: card[name](pobs, pobs_e))[1]
+                 for _ in range(3)]
+        sweep = sum(stats[k][1] for k in sweeps[name]) / 3
+        cyc = cycles.get(name, cycles["oi"] if name == "full" else None)
+        ctimes = [timed(cyc)[1] for _ in range(3)]
+        label = {"oi": "Pipeline(h=0) resolve", "full": "Pipeline(h=0) "
+                 "resolve", "ensi": "EnsiPipeline(h=0) general"}.get(
+            name, f"MultiEnsiPipeline({name})")
+        print(f"  {name}: median call {statistics.median(times) * 1e3:.3f}"
+              f" ms over 3 ({', '.join(f'{t * 1e3:.3f}' for t in times)} "
+              f"ms), of which the device sweep {sweep * 1e3:.3f} ms; "
+              f"{label} cycle {statistics.median(ctimes) * 1e3:.3f} ms",
+              flush=True)
+    print(f"  starved call (dense sweep): {dense_s * 1e3:.3f} ms",
+          flush=True)
+    del pipe, ensi_pipe, cycles, ens_t
+    print(f"  phase peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
+
+    # -- the 256^2 cut: device route against the host route --
+    g2, pts2, st2, sub_bg, po2, ens2, pe2, rat2 = cut
+    k = pts2.size()
+    idx2 = g2.nearest_map(pts2.lats, pts2.lons)
+    host = api_calls(g2, pts2, st2, sub_bg, ens2, rat2, idx2,
+                     dict.fromkeys(API_FUNCS, gt))
+    dev2 = {name: on_card(f) for name, f in api_calls(
+        g2, pts2, st2, sub_bg, ens2, rat2, idx2, module_of).items()}
+    gap2, gape2 = po2.copy(), pe2.copy()
+    drop = np.arange(k) % 3 != 0
+    gap2[drop] = np.nan
+    gape2[drop] = np.nan
+    n_starved = int(starved_rows(g2, pts2, st2, gap2).sum())
+    check(n_starved > 0, f"256^2 cut, {k} obs: dropping {int(drop.sum())} "
+                         f"starves {n_starved} rows")
+    for case, po, pe in (("shortlist", po2, pe2), ("starved", gap2, gape2)):
+        for name in API_FUNCS:
+            reset()
+            got = dev2[name](po, pe)
+            want = host[name](po, pe)
+            if name != "full":
+                got, want = (got,), (want,)
+            d = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+            close = float(np.mean([np.mean(np.abs(a - b) < API_CLOSE)
+                                   for a, b in zip(got, want)]))
+            route = (count(*fallbacks[name]) > 0 if case == "starved"
+                     else count(*sweeps[name]) == 1
+                     and count(*fallbacks[name]) == 0)
+            check(route and all(bool(np.isfinite(a).all()) for a in got)
+                  and d < API_TOL,
+                  f"256^2 {name} ({case} route): card vs host max|d|="
+                  f"{d:.3g}, {close:.6f} of cells within {API_CLOSE}")
 
 
 def main():
@@ -502,7 +797,7 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    launches["K5"], ens_np = ensemble_phase(
+    launches["K5"], ens_np, ens_structure = ensemble_phase(
         gt, stencil, dev, grid, points, background.reshape(-1)[idx], obs,
         gap, ratios)
     print(f"  ensemble phase {time.perf_counter() - t0:.3f} s, peak device "
@@ -570,6 +865,18 @@ def main():
         check(bool(torch.isfinite(sub["cuda"]).all())
               and d <= ENS_CARD_CPU_TOL[name],
               f"{name} ({label}): card vs CPU max|d|={d:.3g}")
+
+    # -- 9. gridpp's OI API on the card --
+    print(f"[gridpp OI API 2000x2000, 10k obs, {N_ENS} members: device "
+          "route]", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api_phase(gt, dev, grid, points, ens_structure, background, pobs,
+              ratios, idx, ens_np,
+              (g2, pts2, st2, np.ascontiguousarray(sub_bg), po2.astype(
+                  np.float32), ens2, pe2, ratios[inside]))
+    print(f"  API phase {time.perf_counter() - t0:.3f} s", flush=True)
 
     sources = {"K1": ("neighbourhood_mean", f"{PALLAS}:301"),
                "K2": ("neighbourhood_minmax", f"{PALLAS}:364"),

@@ -28,7 +28,8 @@ from ..ops import stencil
 from ..ops.canonical import canonical_shortlist
 from ..ops.neighbourhood import neighbourhood
 from ..ops.oi import oi_block_from_candidates
-from ..ops.oi_ensi import _s_cap, _shortlist_sweep, _table
+from ..ops.oi_ensi import (_s_cap, _shortlist_sweep, _table,
+                           obs_anomalies)
 from .oi import _origin, _resolved_fields
 
 __all__ = ["Pipeline", "EnsiPipeline", "MultiEnsiPipeline"]
@@ -465,14 +466,7 @@ class EnsiPipeline(_EnsembleBase):
         # contiguous rows: torch's CPU reductions over E vectorise a strided
         # layout by shape, and a row's result must not depend on the block
         flat = self._smooth(background).reshape(self._n, e).contiguous()
-        pback = flat[self._obs_nn]  # (P, E)
-        fin = torch.isfinite(pback)
-        cnt = fin.sum(dim=1)
-        y_hat = torch.where(
-            cnt > 0, torch.where(fin, pback, 0.0).sum(dim=1)
-            / torch.clamp(cnt, min=1), torch.nan)
-        y_anom = torch.where(fin & torch.isfinite(y_hat)[:, None],
-                             pback - y_hat[:, None], pback)
+        y_hat, y_anom = obs_anomalies(flat[self._obs_nn])
         out, cond_bad = _shortlist_sweep(
             self._cand_fast if assume_valid else self._cand, flat,
             _table(pobs, psigmas, y_hat, y_anom), torch.isfinite(pobs),
@@ -557,25 +551,21 @@ class MultiEnsiPipeline(_EnsembleBase):
             bgc = background_corr.reshape(self._n, e).contiguous()
         pback = bg[self._obs_nn]  # (P, E)
         if self.variant == "utem":
-            y_hat = pback.mean(dim=1)
-            y_anom = torch.where(torch.isfinite(y_hat)[:, None],
-                                 pback - y_hat[:, None], 0.0)
-            tab = torch.cat([pobs[:, None], pratios[:, None], y_hat[:, None],
-                             y_anom, mops.norm_anom(bgc[self._obs_nn])],
-                            dim=1)
             out, n_cond = mops.utem_serve_sweep(
-                bg, bgc, self._bratios, tab, torch.isfinite(pobs),
-                self._cand, self._s_cap, self.block, self.allow)
+                bg, bgc, self._bratios,
+                mops.utem_table(pobs, pratios, pback, bgc[self._obs_nn]),
+                torch.isfinite(pobs), self._cand, self._s_cap, self.block,
+                self.allow)
         else:
-            cols = [self._obs_tab_fields, pratios[:, None], pobs - pback]
-            x_l = None
-            if bgc is not None:  # ebe
-                x_l = mops.norm_anom(bgc)
-                cols.append(mops.norm_anom(bgc[self._obs_nn]))
+            ebe = bgc is not None
             out = mops.member_serve_sweep(
-                self.structure, self._field_keys, bg, self._bratios, x_l,
-                torch.cat(cols, dim=1), torch.isfinite(pobs[:, 0]),
-                self._cand, self._s_cap, self.block, self.allow)
+                self.structure, self._field_keys, bg, self._bratios,
+                mops.norm_anom(bgc) if ebe else None,
+                mops.member_table(self._obs_tab_fields, pratios,
+                                  pobs - pback,
+                                  bgc[self._obs_nn] if ebe else None),
+                torch.isfinite(pobs[:, 0]), self._cand, self._s_cap,
+                self.block, self.allow)
             n_cond = torch.zeros((), dtype=torch.int64, device=self.device)
         return out.reshape(self.shape + (e,)), n_cond
 

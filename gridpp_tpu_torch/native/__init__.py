@@ -4,8 +4,11 @@ The same C++ as gridpp_tpu's native engine (csrc/gridpp_native.cpp and
 csrc/gridpp_kernels.cpp), compiled with g++ on first use into this
 package's own build directory (see _build.py). The library holds the
 cell-hash spatial index, `pair_rho_host`, whose rho bits make the
-canonical shortlist (ops/canonical.py) identical to gridpp_tpu's, and the
-host neighbourhood kernels behind the numpy API (api/neighbourhood.py).
+canonical shortlist (ops/canonical.py) identical to gridpp_tpu's, the
+host neighbourhood kernels behind the numpy API (api/neighbourhood.py),
+and the threaded per-gridpoint OI solvers of the OI API's host route
+(`oi_host_solve`, `oi_ensi_host_solve`, `oi_member_host_solve`,
+`oi_utem_host_solve`; api/oi.py, api/oi_ensi.py, api/oi_ensi_multi.py).
 When no compiler is available the callers fall back to scipy, numpy and
 the port's ops, as gridpp_tpu's do.
 """
@@ -74,6 +77,18 @@ def get_lib():
         lib.pair_rho_host.argtypes = (
             [c_p] * 9 + [c_i64] + [c_p] * 5 + [c_p, c_p, c_i64]
             + [c_i32] + [c_p])
+        lib.oi_host_solve.argtypes = (
+            [c_p] * 9 + [c_i64] + [c_p] * 12 + [c_p, c_p, c_i64]
+            + [c_i32, c_i32, c_i32] + [c_p] * 4)
+        lib.oi_ensi_host_solve.argtypes = (
+            [c_p] * 9 + [c_i64] + [c_p] * 13 + [c_p, c_p, c_i64]
+            + [c_i32, c_i32, c_i32, c_i32] + [c_p] * 3)
+        lib.oi_member_host_solve.argtypes = (
+            [c_p] * 9 + [c_i64] + [c_p] * 14 + [c_p, c_p, c_i64]
+            + [c_i32, c_i32, c_i32, c_i32, c_i32] + [c_p] * 2)
+        lib.oi_utem_host_solve.argtypes = (
+            [c_p] * 9 + [c_i64] + [c_p] * 15 + [c_p, c_p, c_i64]
+            + [c_i32, c_i32, c_i32, c_i32] + [ctypes.c_double] + [c_p] * 4)
         _lib = lib
         return _lib
 
@@ -126,6 +141,11 @@ def _f32c(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.float32)
 
 
+def _geom_ptrs(fx):
+    return [_f32c(fx[k]) for k in ("x", "y", "z", "elev", "laf", "h",
+                                   "v", "w", "loc")]
+
+
 def pair_rho_host(gfx, ofx, cand, mask, kernel_type):
     """Canonical pair-rho over explicit candidate lists (csrc
     pair_rho_host): the exact bits the native OI solvers' select_topk
@@ -140,8 +160,7 @@ def pair_rho_host(gfx, ofx, cand, mask, kernel_type):
     mask = np.ascontiguousarray(mask, np.uint8)
     kpad = cand.shape[1] if cand.ndim == 2 else 0
     rho = np.empty((n, kpad), np.float32)
-    garrs = [_f32c(gfx[k]) for k in ("x", "y", "z", "elev", "laf", "h",
-                                     "v", "w", "loc")]
+    garrs = _geom_ptrs(gfx)
     oarrs = [_f32c(ofx[k]) for k in ("x", "y", "z", "elev", "laf")]
     lib.pair_rho_host(
         *[_ptr(a) for a in garrs], n,
@@ -196,3 +215,140 @@ def nb_quantile_fast(values: np.ndarray, halfwidth: int,
                          thr.size, None if qf is None else _ptr(qf),
                          float(q_scalar), _ptr(out))
     return out
+
+
+def oi_host_solve(gfx, ofx, obs, oyb, oratio, cand, mask, kernel_type,
+                  max_points, allow_extrapolation, background, bvariance):
+    """Threaded per-gridpoint OI solve (csrc oi_host_solve).
+
+    gfx/ofx: dicts with f32 arrays x,y,z,elev,laf,h,v,w,loc for the
+    gridpoints / observations. Returns (analysis, avariance) or None
+    when the native engine is unavailable.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = gfx["x"].shape[0]
+    out = np.empty(n, np.float32)
+    avar = np.empty(n, np.float32)
+    cand = np.ascontiguousarray(cand, np.int32)
+    mask = np.ascontiguousarray(mask, np.uint8)
+    kpad = cand.shape[1]
+    # materialize every converted array BEFORE taking pointers, so the
+    # temporaries stay alive through the call
+    garrs = _geom_ptrs(gfx)
+    oarrs = _geom_ptrs(ofx)
+    varrs = [_f32c(obs), _f32c(oyb), _f32c(oratio)]
+    bgarrs = [_f32c(background), _f32c(bvariance)]
+    lib.oi_host_solve(
+        *[_ptr(a) for a in garrs], n,
+        *[_ptr(a) for a in oarrs],
+        *[_ptr(a) for a in varrs],
+        _ptr(cand), _ptr(mask), kpad,
+        int(kernel_type), int(max_points), int(bool(allow_extrapolation)),
+        *[_ptr(a) for a in bgarrs],
+        _ptr(out), _ptr(avar))
+    return out, avar
+
+
+def oi_ensi_host_solve(gfx, ofx, obs, sigmas, yhat, yanom, cand, mask,
+                       kernel_type, max_points, allow_extrapolation,
+                       background):
+    """Threaded per-gridpoint EnSI solve (csrc oi_ensi_host_solve).
+
+    background/yanom: (n, E)/(P, E) f32 row-major. Returns
+    (analysis (n, E), cond_bad (n,) uint8) or None when unavailable.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    background = np.ascontiguousarray(background, np.float32)
+    n, n_ens = background.shape
+    yanom = np.ascontiguousarray(yanom, np.float32)
+    out = np.empty((n, n_ens), np.float32)
+    cond_bad = np.empty(n, np.uint8)
+    cand = np.ascontiguousarray(cand, np.int32)
+    mask = np.ascontiguousarray(mask, np.uint8)
+    kpad = cand.shape[1]
+    garrs = _geom_ptrs(gfx)
+    oarrs = _geom_ptrs(ofx)
+    varrs = [_f32c(obs), _f32c(sigmas), _f32c(yhat), yanom]
+    lib.oi_ensi_host_solve(
+        *[_ptr(a) for a in garrs], n,
+        *[_ptr(a) for a in oarrs],
+        *[_ptr(a) for a in varrs],
+        _ptr(cand), _ptr(mask), kpad,
+        int(kernel_type), int(max_points), int(bool(allow_extrapolation)),
+        int(n_ens),
+        _ptr(background), _ptr(out), _ptr(cond_bad))
+    return out, cond_bad
+
+
+def oi_member_host_solve(gfx, ofx, oratio, innov, zr, xl, bratios, cand,
+                         mask, kernel_type, max_points,
+                         allow_extrapolation, use_z, background):
+    """Threaded ebe/ebesc member-by-member solve (csrc
+    oi_member_host_solve). Returns analysis (n, E) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    background = np.ascontiguousarray(background, np.float32)
+    n, n_ens = background.shape
+    innov = np.ascontiguousarray(innov, np.float32)
+    p = innov.shape[0]
+    if zr is None:
+        zr = np.zeros((p, n_ens), np.float32)
+    if xl is None:
+        xl = np.zeros((n, n_ens), np.float32)
+    out = np.empty((n, n_ens), np.float32)
+    cand = np.ascontiguousarray(cand, np.int32)
+    mask = np.ascontiguousarray(mask, np.uint8)
+    garrs = _geom_ptrs(gfx)
+    oarrs = _geom_ptrs(ofx)
+    varrs = [_f32c(oratio), innov,
+             np.ascontiguousarray(zr, np.float32),
+             np.ascontiguousarray(xl, np.float32),
+             _f32c(bratios)]
+    lib.oi_member_host_solve(
+        *[_ptr(a) for a in garrs], n,
+        *[_ptr(a) for a in oarrs],
+        *[_ptr(a) for a in varrs],
+        _ptr(cand), _ptr(mask), cand.shape[1],
+        int(kernel_type), int(max_points), int(bool(allow_extrapolation)),
+        int(n_ens), int(bool(use_z)),
+        _ptr(background), _ptr(out))
+    return out
+
+
+def oi_utem_host_solve(gfx, ofx, obs, oratio, yhat, yanom, ycorr, bratios,
+                       cand, mask, kernel_type, max_points,
+                       allow_extrapolation, min_std, background,
+                       background_corr):
+    """Threaded utem ETKF solve (csrc oi_utem_host_solve). Returns
+    (analysis (n, E), cond_bad (n,) uint8) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    background = np.ascontiguousarray(background, np.float32)
+    background_corr = np.ascontiguousarray(background_corr, np.float32)
+    n, n_ens = background.shape
+    out = np.empty((n, n_ens), np.float32)
+    cond_bad = np.empty(n, np.uint8)
+    cand = np.ascontiguousarray(cand, np.int32)
+    mask = np.ascontiguousarray(mask, np.uint8)
+    garrs = _geom_ptrs(gfx)
+    oarrs = _geom_ptrs(ofx)
+    varrs = [_f32c(obs), _f32c(oratio), _f32c(yhat),
+             np.ascontiguousarray(yanom, np.float32),
+             np.ascontiguousarray(ycorr, np.float32),
+             _f32c(bratios)]
+    lib.oi_utem_host_solve(
+        *[_ptr(a) for a in garrs], n,
+        *[_ptr(a) for a in oarrs],
+        *[_ptr(a) for a in varrs],
+        _ptr(cand), _ptr(mask), cand.shape[1],
+        int(kernel_type), int(max_points), int(bool(allow_extrapolation)),
+        int(n_ens), float(min_std),
+        _ptr(background), _ptr(background_corr),
+        _ptr(out), _ptr(cond_bad))
+    return out, cond_bad

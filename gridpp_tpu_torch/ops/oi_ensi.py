@@ -21,9 +21,10 @@ from __future__ import annotations
 
 import torch
 
-from .oi import _select_top
+from .oi import _blocks, _select_top
 
-__all__ = ["ensi_kernel", "ensi_shortlist_sweep", "ensi_dense_sweep"]
+__all__ = ["obs_anomalies", "ensi_kernel", "ensi_shortlist_sweep",
+           "ensi_dense_sweep"]
 
 # Minimax-optimal odd-polynomial schedule for the coupled Newton-Schulz
 # inverse-sqrt iteration (computed offline via per-step LP on the current
@@ -205,13 +206,6 @@ def _s_cap(max_points: int, k: int) -> int:
     return min(max_points, k) if max_points > 0 else k
 
 
-def _blocks(n: int, block: int):
-    """Row slices of at most `block` rows covering range(n)."""
-    if block < 1:
-        raise ValueError("block must be >= 1")
-    return [slice(i, min(i + block, n)) for i in range(0, n, block)]
-
-
 def _reselect(sel, rho, valid, obs_ok, s_cap: int):
     """The top s_cap shortlist candidates whose obs are valid this cycle.
 
@@ -258,6 +252,21 @@ def _shortlist_sweep(cand, background, tab, obs_ok, s_cap: int, block: int,
         return _reselect(sel[rows], rho[rows], valid[rows], obs_ok, s_cap)
 
     return _sweep(background, tab, select, block, allow_extrapolation)
+
+
+def obs_anomalies(pback):
+    """The ensemble mean at each obs point over its finite members, NaN
+    where none is finite, and the members' anomalies from it (member kept
+    as it is where it or the mean is not finite; oi_ensi.cpp:166-178).
+    pback: (P, E). Returns (y_hat (P,), y_anom (P, E))."""
+    fin = torch.isfinite(pback)
+    cnt = fin.sum(dim=1)
+    y_hat = torch.where(
+        cnt > 0, torch.where(fin, pback, 0.0).sum(dim=1)
+        / torch.clamp(cnt, min=1), torch.nan)
+    y_anom = torch.where(fin & torch.isfinite(y_hat)[:, None],
+                         pback - y_hat[:, None], pback)
+    return y_hat, y_anom
 
 
 def _table(obs, sigmas, y_hat, y_anom):

@@ -20,12 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .oi import _gj_solve, _select_top
-from .oi_ensi import (_blocks, _finish, _mm, _mv, _reselect, _s_cap,
-                      _transform)
+from .oi import _blocks, _gj_solve, _select_top
+from .oi_ensi import _finish, _mm, _mv, _reselect, _s_cap, _transform
 
 __all__ = ["DEFAULT_MIN_STD", "norm_anom", "ebe_kernel", "ebesc_kernel",
-           "utem_kernel", "member_serve_sweep", "utem_serve_sweep"]
+           "utem_kernel", "member_table", "utem_table", "member_serve_sweep",
+           "utem_serve_sweep"]
 
 DEFAULT_MIN_STD = 0.0013
 
@@ -55,11 +55,13 @@ def _select(structure, p1_fields, cand_fields, cand_valid, max_points, k):
 
 
 def _pair_corr(structure, sel_fields):
-    """(B, S, S) structure correlation between the selected obs."""
+    """(B, S, S) structure correlation between the selected obs, on their
+    device (not torch's default one)."""
     pi = {key: v[:, :, None] for key, v in sel_fields.items()}
     pj = {key: v[:, None, :] for key, v in sel_fields.items()}
     return torch.as_tensor(structure.corr_torch(pi, pj),
-                           dtype=torch.float32)
+                           dtype=torch.float32,
+                           device=next(iter(sel_fields.values())).device)
 
 
 def _anti_extrap_member(dx, innov, sel_valid):
@@ -202,6 +204,28 @@ def utem_kernel(structure, p1_fields, cand_fields, cand_valid, background,
                       _take(y_hat, sel), _take(y_anom, sel),
                       _take(y_corr, sel), background, background_corr,
                       bratios, allow_extrapolation)
+
+
+def member_table(obs_fields, pratios, innov, pback_corr=None):
+    """The packed per-obs table of `member_serve_sweep`: obs_fields (P, F)
+    static obs fields, pratios (P,), innov (P, E) member innovations, and
+    for ebe the normalized anomalies of pback_corr (P, E), the correlation
+    ensemble at the obs."""
+    cols = [obs_fields, pratios[:, None], innov]
+    if pback_corr is not None:
+        cols.append(norm_anom(pback_corr))
+    return torch.cat(cols, dim=1)
+
+
+def utem_table(pobs, pratios, pback, pback_corr):
+    """The packed per-obs table of `utem_serve_sweep` from pobs/pratios
+    (P,) and the two ensembles at the obs, pback/pback_corr (P, E): [obs,
+    pratios, y_hat, y_anom(E), y_corr(E)]."""
+    y_hat = pback.mean(dim=1)
+    y_anom = torch.where(torch.isfinite(y_hat)[:, None],
+                         pback - y_hat[:, None], 0.0)
+    return torch.cat([pobs[:, None], pratios[:, None], y_hat[:, None],
+                      y_anom, norm_anom(pback_corr)], dim=1)
 
 
 def member_serve_sweep(structure, field_keys, background, bratios, x_l, tab,

@@ -106,3 +106,17 @@ def ens_problem(seed, n=30, n_obs=50, e=6, nan_obs=0.2, span=3.0):
 
 def tensor(a, device="cpu"):
     return torch.as_tensor(np.asarray(a), device=device)
+
+
+def spy(monkeypatch, module, name):
+    """Count the calls of module.name for the rest of the test: returns
+    the list the wrapper appends to on each call."""
+    calls = []
+    real = getattr(module, name)
+
+    def wrapped(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, name, wrapped)
+    return calls

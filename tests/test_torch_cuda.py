@@ -8,7 +8,9 @@ K3 rtol 2e-5, atol 2e-3 (:220); K4 rtol/atol 1e-5 (:67) and bit for bit on
 exact cdf ties (:70-85). Every kernel's launch counter moves by one per
 launch. The pipelines on the card agree with their CPU runs (the plain
 versions): Pipeline within 1e-3, EnsiPipeline and utem within 2e-3, ebe and
-ebesc within 1e-3; an EnSI cycle smoothed with Mean launches K5 once.
+ebesc within 1e-3; an EnSI cycle smoothed with Mean launches K5 once. The
+six OI API functions on their device route (the module function under the
+card as default device) stay within 1e-2 of their host route.
 
 This file imports no jax, so it also runs on a machine with the card and
 no JAX installed:
@@ -292,3 +294,102 @@ def test_ensemble_transform_refuses_tf32(dev):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     pipe.run_device(*args)
+
+
+def _api_problem(seed=13, n=40, n_obs=60, e=5, starved=False):
+    """A 40 x 40 network with an ensemble for the OI API. starved drops
+    two thirds of the obs: truncated shortlist rows then keep fewer than
+    max_points valid candidates, and the device route falls back to the
+    host-candidate kernels on the card."""
+    rng = np.random.default_rng(seed)
+    lats, lons = np.meshgrid(np.linspace(55, 58, n), np.linspace(5, 8, n),
+                             indexing="ij")
+    grid = gt.Grid(lats, lons)
+    pts = gt.Points(rng.uniform(55, 58, n_obs), rng.uniform(5, 8, n_obs),
+                    np.zeros(n_obs), np.zeros(n_obs))
+    nn = grid.nearest_map(pts.lats, pts.lons)
+    bg = rng.normal(280, 5, (n, n)).astype(np.float32)
+    ens = rng.normal(280, 5, (n, n, e)).astype(np.float32)
+    ensc = (ens + rng.normal(0, 1, ens.shape)).astype(np.float32)
+    pback_e = ens.reshape(-1, e)[nn]
+    d = dict(grid=grid, pts=pts, bg=bg, ens=ens, ensc=ensc,
+             pback=bg.reshape(-1)[nn], pback_e=pback_e,
+             pbackc=ensc.reshape(-1, e)[nn],
+             pobs=(bg.reshape(-1)[nn] + rng.normal(0, 1, n_obs)).astype(
+                 np.float32),
+             pobs_m=(pback_e.mean(axis=1) + rng.normal(0, 1, n_obs)).astype(
+                 np.float32),
+             pobs_e=(pback_e + rng.normal(0, 1, (n_obs, e))).astype(
+                 np.float32),
+             ratios=np.full(n_obs, 0.1, np.float32),
+             bvar=rng.uniform(0.5, 2, (n, n)).astype(np.float32),
+             pbvar=rng.uniform(0.5, 2, n_obs).astype(np.float32),
+             bratios=np.ones((n, n), np.float32))
+    drop = (np.arange(n_obs) % 3 != 0) if starved else np.zeros(n_obs, bool)
+    for key in ("pobs", "pobs_m", "pobs_e"):
+        d[key][drop] = np.nan
+    return d
+
+
+def _api_call(fn, d, owner):
+    """Call API function fn (oi, full, ensi, ebe, ebesc, utem) of owner, a
+    namespace: the port's top level or one of its api modules."""
+    s = gt.BarnesStructure(30000.0)
+    g, p = d["grid"], d["pts"]
+    if fn == "oi":
+        return owner.optimal_interpolation(g, d["bg"], p, d["pobs"],
+                                           d["ratios"], d["pback"], s, 8)
+    if fn == "full":
+        return owner.optimal_interpolation_full(
+            g, d["bg"], d["bvar"], p, d["pobs"], d["ratios"], d["pback"],
+            d["pbvar"], s, 8)
+    if fn == "ensi":
+        return owner.optimal_interpolation_ensi(
+            g, d["ens"], p, d["pobs_m"], np.full(p.size(), 1.5, np.float32),
+            d["pback_e"], s, 8)
+    multi = getattr(owner, f"optimal_interpolation_ensi_multi_{fn}")
+    if fn == "ebesc":
+        return multi(g, d["bratios"], d["ens"], p, d["pobs_e"], d["ratios"],
+                     d["pback_e"], s, 8)
+    return multi(g, d["bratios"], d["ens"], d["ensc"], p,
+                 d["pobs_m"] if fn == "utem" else d["pobs_e"], d["ratios"],
+                 d["pback_e"], d["pbackc"], s, 8)
+
+
+@pytest.mark.parametrize("starved", [False, True],
+                         ids=["shortlist", "starved"])
+@pytest.mark.parametrize("fn", ["oi", "full", "ensi", "ebe", "ebesc",
+                                "utem"])
+def test_api_device_route_on_card(dev, fn, starved, monkeypatch):
+    """Each OI API function's device route on the card (its module
+    function called under the card as torch's default device) against
+    the same call on the host route (the top-level function, pinned to
+    the CPU: the native solvers): max|d| < 1e-2, the API's contract
+    (tests/test_parity_dense.py:10). The starved case runs the
+    host-candidate kernels on the card."""
+    from gridpp_tpu_torch.api import oi as tapi
+    from gridpp_tpu_torch.api import oi_ensi as tensi
+    from gridpp_tpu_torch.api import oi_ensi_multi as tmulti
+    kernels = {"oi": (tapi, "oi_gather_block"),
+               "full": (tapi, "oi_gather_block"),
+               "ensi": (tensi, "ensi_kernel")}
+    mod, name = kernels.get(fn, (tmulti, f"{fn}_kernel"))
+    calls = []
+    real = getattr(mod, name)
+
+    def record(*a, **k):
+        calls.append(a[1][next(iter(a[1]))].device)
+        return real(*a, **k)
+
+    monkeypatch.setattr(mod, name, record)
+    d = _api_problem(starved=starved)
+    owner = {"oi": tapi, "full": tapi, "ensi": tensi}.get(fn, tmulti)
+    with torch.device(dev):
+        got = _api_call(fn, d, owner)
+    want = _api_call(fn, d, gt)
+    assert all(c == dev for c in calls) and bool(calls) == starved
+    for a, b in zip(got if fn == "full" else (got,),
+                    want if fn == "full" else (want,)):
+        assert isinstance(a, np.ndarray) and a.shape == b.shape
+        assert np.isfinite(a).all()
+        assert np.abs(a - b).max() < 1e-2, np.abs(a - b).max()

@@ -295,6 +295,19 @@ def test_multi_block_size_independent(variant):
     np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("variant", ["ebe", "ebesc", "utem"])
+def test_multi_pipeline_ignores_the_default_device(variant):
+    """A pipeline on the CPU runs the same under another default device:
+    the member update's pair correlations are made on the inputs' device,
+    so a CPU pipeline under a CUDA default never mixes devices."""
+    prob = _mk(7, nan_obs=0.2)
+    pipe = _port(prob, variant)
+    want = _cycle(pipe, prob)
+    with torch.device("meta"):
+        got = _cycle(pipe, prob)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("variant", ["ebesc", "utem"])
 def test_multi_serve_stream_matches_per_cycle_calls(variant):
     prob = _mk(7)

@@ -14,6 +14,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, gridpp_tpu_torch\n"
             "import gridpp_tpu_torch.ops.oi_ensi\n"
             "import gridpp_tpu_torch.ops.oi_ensi_multi\n"
+            "import gridpp_tpu_torch.api.oi\n"
+            "import gridpp_tpu_torch.api.oi_ensi\n"
+            "import gridpp_tpu_torch.api.oi_ensi_multi\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
             "                                            'gridpp_tpu.')))\n"
@@ -36,7 +39,11 @@ def test_import_pulls_in_no_jax():
     "neighbourhood_quantile_fast", "get_neighbourhood_thresholds",
     "neighbourhood_ens", "neighbourhood_quantile_ens",
     "neighbourhood_quantile_ens_fast", "calc_statistic",
-    "calc_even_quantiles"])
+    "calc_even_quantiles", "optimal_interpolation",
+    "optimal_interpolation_full", "optimal_interpolation_ensi",
+    "optimal_interpolation_ensi_multi_ebe",
+    "optimal_interpolation_ensi_multi_ebesc",
+    "optimal_interpolation_ensi_multi_utem", "warning"])
 def test_public_names(name):
     import gridpp_tpu_torch
     assert hasattr(gridpp_tpu_torch, name)

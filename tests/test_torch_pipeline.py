@@ -239,9 +239,10 @@ def test_statistics_without_a_stencil_raise_on_first_cycle(stat, match):
 def test_nan_obs_elevation_matches_plain_oi():
     """ROADMAP F1 pinned in the port: with one NaN obs elevation and a
     vertical structure scale, the tiled resolve and general paths and the
-    flat path stay with gridpp_tpu.optimal_interpolation (the port pages
-    with index gathers, so the NaN stays in its own candidate; gridpp_tpu's
-    tiled path, which pages with one-hot einsums, does not)."""
+    flat path stay with gridpp_tpu.optimal_interpolation and with the
+    port's own (the port pages with index gathers, so the NaN stays in its
+    own candidate; gridpp_tpu's tiled path, which pages with one-hot
+    einsums, does not)."""
     prob = problem(5, n=60, n_obs=120, elevs=True)
     prob["pelev"] = prob["pelev"].copy()
     prob["pelev"][17] = np.nan
@@ -250,6 +251,9 @@ def test_nan_obs_elevation_matches_plain_oi():
     plain = gj.optimal_interpolation(grid, prob["background"], pts, pobs,
                                      prob["ratios"], pback, sj, MAX_POINTS)
     g2, p2, st = objects(gt, prob, gt.BarnesStructure(30000.0, 200.0))
+    own = gt.optimal_interpolation(g2, prob["background"], p2, pobs,
+                                   prob["ratios"], pback, st, MAX_POINTS)
+    assert np.array_equal(own, plain, equal_nan=True)  # same native solver
     n_obs = p2.size()
     bg, po = tensor(prob["background"]), tensor(pobs)
     for tiled, paths in ((True, ("resolve", "general")), (False,
@@ -258,5 +262,6 @@ def test_nan_obs_elevation_matches_plain_oi():
                            tiled=tiled, candidates=n_obs, device="cpu")
         for path in paths:
             out = pipe.run_device(bg, po, prob["ratios"], path=path).numpy()
-            np.testing.assert_allclose(out, plain, rtol=0, atol=1e-3,
-                                       err_msg=f"tiled={tiled} {path}")
+            for ref in (plain, own):
+                np.testing.assert_allclose(out, ref, rtol=0, atol=1e-3,
+                                           err_msg=f"tiled={tiled} {path}")
