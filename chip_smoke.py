@@ -7,20 +7,32 @@ Run from the root of a checkout. In order it:
 1. requires a CUDA card (there is no CPU path) and prints its name and
    power limit; TF32 is switched off for matmul and cuDNN;
 2. builds the kernels K1-K5 (csrc/*.cu, one nvcc per source, all started
-   together; K5 rides in K1's and K2's libraries) and the native host
-   library, and prints the build times and the compiler's resource report;
+   together) and the native host library, and prints the build times and
+   the compiler's resource report;
 3. holds every kernel against its plain PyTorch version on the card, on
    K1's cases (2000 x 2000 with 0% and 10% NaN, small edge shapes, a
    batched (3, 256, 300)): K1 (Mean/Sum/Count) rtol 1e-5, atol 1e-4; K2
    (Min/Max) equality; K3 (Std/Variance) rtol 2e-5, atol 2e-3; K4
-   (quantile_fast) rtol/atol 1e-5 at q in {0, 0.25, 0.5, 0.9, 1}, equality
-   on exact cdf ties, all NaN for a NaN q; K5 (members) at 2000 x 2000 x 10,
-   h=7, rtol 1e-5, atol 1e-4 for Mean/Sum/Count and equality for Min/Max,
-   against its plain version and against K1/K2 on each member;
-4. times each kernel and its plain version by CUDA events at full width:
-   K1/K2/K3 at 2000 x 2000, h=7; K4 on a uniform [0, 1) 2000 x 2000 field,
-   h=7, q=0.5, thresholds linspace(0, 1, 11) (tests/benchmark.py:65-67,
-   94-95); K5 at 2000 x 2000 x 10, beside 10 launches of K1;
+   (quantile_fast) bit for bit, NaN positions included, at q in {0, 0.25,
+   0.5, 0.9, 1}, at h=7 and h=8 (either side of its 8/16-bit lane width)
+   and h=88 (the largest a per-threshold K4 took) with T in {1, 4, 5,
+   11, 12, 33} (unsorted at 12), on exact cdf ties at h in {1, 7, 8}, all
+   NaN for a NaN q; K5 (members) at E in {1, 3, 10, 25} on (130, 257, E)
+   (X * E not a multiple of 4), at 2000 x 2000 x 10 with 10% NaN and on a
+   NaN-free normal(280, 5) ensemble: rtol 1e-5, atol 1e-4 for
+   Mean/Sum/Count and equality for Min/Max, against its plain version and
+   against K1/K2 on the first and last member;
+4. times each kernel, its plain version and, where one PyTorch call
+   computes the same function (NaN-free input), that call, by CUDA events
+   at full width, and the kernel's device time alone from torch.profiler:
+   K1/K2/K3 at 2000 x 2000, h=7 (F.avg_pool2d / F.max_pool2d for K1/K2);
+   K4 on a uniform [0, 1) 2000 x 2000 field, h=7, q=0.5, thresholds
+   linspace(0, 1, 11) (tests/benchmark.py:65-67, 94-95); K5 Mean on the
+   2000 x 2000 x 10 normal(280, 5) ensemble (F.avg_pool2d on its
+   channels-last (1, E, Y, X) view), beside 10 launches of K1 on its
+   contiguous member planes and beside K5 on the 10%-NaN field; prints
+   each kernel's bound (one read and one write at 3.35 TB/s, or its
+   operations at the H100's f32/int32 rate, whichever is longer);
 5. the serving path: builds Pipeline at the benchmark configuration
    (2000 x 2000 grid, 10,000 obs, BarnesStructure(10 km), max_points=10,
    neighbourhood Mean h=7, ratios 0.1, seed 0) on the card, runs cycles of
@@ -86,10 +98,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 K1_RTOL, K1_ATOL = 1e-5, 1e-4    # tests/test_pallas_stencil.py:36-38
 K3_RTOL, K3_ATOL = 2e-5, 2e-3    # tests/test_pallas_stencil.py:220
-K4_TOL = 1e-5                    # tests/test_pallas_stencil.py:67
 FAST_TOL = 1e-3                  # tests/test_pipeline_consistency.py:86
 CARD_CPU_TOL = 1e-3
 # card vs CPU of the ensemble pipelines: the E x E products and sums run in
@@ -98,6 +110,11 @@ ENS_CARD_CPU_TOL = {"ensi": 2e-3, "utem": 2e-3, "ebe": 1e-3, "ebesc": 1e-3}
 N_ENS = 10
 CYCLES = 5
 PALLAS = "gridpp_tpu/ops/pallas_stencil.py"
+# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM, f32 outside the tensor
+# cores, and int32, which the SM issues at half the f32 rate
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+I32_OPS_S = F32_OPS_S / 2
 
 
 def check(cond, what):
@@ -139,6 +156,32 @@ def event_ms(fn, reps=50):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20):
+    """Mean device (kernel) time of fn() over reps calls from
+    torch.profiler's CUPTI trace, host overhead excluded; None when the
+    trace shows no device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def bound_ms(nbytes, ops, ops_rate):
+    """The least time of the work on one H100 SXM: the larger of its bytes
+    over 3.35 TB/s (each input read once, each output written once) and
+    its operations over ops_rate; returns (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def bench_problem(n=2000, p=10000):
@@ -652,40 +695,81 @@ def main():
         hx = min(h, shape[-1] - 1)
         for q in (0.0, 0.25, 0.5, 0.9, 1.0):
             got = stencil.neighbourhood_quantile_fast_cuda(x, q, hy, hx, thr)
-            ok, e = compare(got, nops._quantile_fast_xla(x, q, h, thr),
-                            (K4_TOL, K4_TOL))
-            check(ok, f"K4 {shape} h={h} nan={nan_frac} q={q} "
+            ok, e = compare(got, nops._quantile_fast_xla(x, q, h, thr), None)
+            check(ok, f"K4 {shape} h={h} nan={nan_frac} q={q} equal, "
                       f"max|d|={e:.3g}")
             err["K4"] = max(err["K4"], e)
+    # either side of the 8/16-bit lane boundary (h=7: 225 cells, h=8: 289),
+    # thresholds that fill, straddle and overflow the packed words, and the
+    # largest halfwidth a K4 that counts each threshold separately takes
+    # (h=88: (64 + 2h)^2 floats of shared memory; there the plain version
+    # runs on the CPU, since K1, which it calls on the card, needs more
+    # shared memory); thresholds unsorted in one case
+    for shape, h, qs in (((256, 300), 7, (0.1, 0.5, 1.0)),
+                         ((256, 300), 8, (0.1, 0.5, 1.0)),
+                         ((180, 200), 88, (0.5,))):
+        xn = field(rng, shape, 0.1)
+        x = torch.as_tensor(xn, device=dev)
+        for t in (1, 4, 5, 11, 12, 33):
+            thr = np.quantile(xn[np.isfinite(xn)],
+                              np.linspace(0, 1, t)).astype(np.float32)
+            if t == 12:
+                thr = rng.permutation(thr)
+            thr = torch.as_tensor(thr, device=dev)
+            for q in qs:
+                got = stencil.neighbourhood_quantile_fast_cuda(x, q, h, h,
+                                                               thr)
+                on = x.device if h < 88 else torch.device("cpu")
+                want = nops._quantile_fast_xla(x.to(on), q, h,
+                                               thr.to(on)).to(dev)
+                ok, e = compare(got, want, None)
+                check(ok, f"K4 {shape} h={h} T={t} q={q} equal")
     ties = torch.as_tensor(
         np.random.default_rng(11).integers(0, 5, (30, 40)), device=dev,
         dtype=torch.float32)
     ties[4, 7] = torch.nan
     tthr = torch.arange(5, dtype=torch.float32, device=dev)
-    for q in (float(np.float32(1 / 3)), 0.5, 0.25, float(np.float32(2 / 9))):
-        got = stencil.neighbourhood_quantile_fast_cuda(ties, q, 1, 1, tthr)
-        ok, e = compare(got, nops._quantile_fast_xla(ties, q, 1, tthr), None)
-        check(ok, f"K4 exact cdf ties q={q}: equal")
+    for h in (1, 7, 8):
+        for q in (float(np.float32(1 / 3)), 0.5, 0.25,
+                  float(np.float32(2 / 9))):
+            got = stencil.neighbourhood_quantile_fast_cuda(ties, q, h, h,
+                                                           tthr)
+            ok, e = compare(got, nops._quantile_fast_xla(ties, q, h, tthr),
+                            None)
+            check(ok, f"K4 exact cdf ties h={h} q={q}: equal")
     got = stencil.neighbourhood_quantile_fast_cuda(x, float("nan"), hy, hx,
                                                    thr)
     check(bool(torch.isnan(got).all()), "K4 NaN quantile: all NaN")
 
-    print("[K5 vs plain version, 2000 x 2000 x 10, h=7]", flush=True)
+    print("[K5 vs plain version and K1/K2 per member]", flush=True)
     xm = torch.as_tensor(field(rng, (2000, 2000, 10), 0.1), device=dev)
-    for stat in stencil.MEMBER_STATS:
-        tol = None if stat in stencil.MINMAX_STATS else (K1_RTOL, K1_ATOL)
-        got = stencil.neighbourhood_members_cuda(xm, 7, 7, stat)
-        ok, e = compare(got, stencil.neighbourhood_members_plain(
-            xm, 7, 7, stat), tol)
-        check(ok, f"K5 stat={stat} vs plain max|d|={e:.3g}")
-        err["K5"] = max(err["K5"], e)
-        per = (stencil.neighbourhood_minmax_cuda
-               if stat in stencil.MINMAX_STATS
-               else stencil.neighbourhood_mean_cuda)
-        for k in (0, 9):
-            ok, e = compare(got[:, :, k],
-                            per(xm[:, :, k].contiguous(), 7, 7, stat), tol)
-            check(ok, f"K5 stat={stat} member {k} vs K1/K2 max|d|={e:.3g}")
+    # EnSI's input: a NaN-free normal(280, 5) ensemble
+    ens = torch.as_tensor(np.random.default_rng(5).normal(
+        280, 5, (2000, 2000, N_ENS)).astype(np.float32), device=dev)
+    # X * E not a multiple of 4 (unaligned rows) for every E but 10 at 2000
+    k5_cases = [(torch.as_tensor(field(rng, (130, 257, e), 0.1), device=dev),
+                 h, f"(130, 257, {e}) h={h} nan=0.1")
+                for e in (1, 3, 10, 25) for h in (2, 7)]
+    k5_cases += [(xm, 7, "(2000, 2000, 10) h=7 nan=0.1"),
+                 (ens, 7, "(2000, 2000, 10) h=7 normal(280, 5)")]
+    for xk, h, label in k5_cases:
+        for stat in stencil.MEMBER_STATS:
+            tol = None if stat in stencil.MINMAX_STATS else (K1_RTOL,
+                                                             K1_ATOL)
+            got = stencil.neighbourhood_members_cuda(xk, h, h, stat)
+            ok, e = compare(got, stencil.neighbourhood_members_plain(
+                xk, h, h, stat), tol)
+            check(ok, f"K5 {label} stat={stat} vs plain max|d|={e:.3g}")
+            err["K5"] = max(err["K5"], e)
+            per = (stencil.neighbourhood_minmax_cuda
+                   if stat in stencil.MINMAX_STATS
+                   else stencil.neighbourhood_mean_cuda)
+            for k in sorted({0, xk.shape[2] - 1}):
+                ok, e = compare(got[:, :, k], per(
+                    xk[:, :, k].contiguous(), h, h, stat), tol)
+                check(ok, f"K5 {label} stat={stat} member {k} vs K1/K2 "
+                          f"max|d|={e:.3g}")
+    del k5_cases
 
     # -- 4. timings --
     print("[timings, CUDA events]", flush=True)
@@ -695,7 +779,6 @@ def main():
     uni = torch.as_tensor(np.random.default_rng(2).random(
         (2000, 2000)).astype(np.float32), device=dev)
     thr11 = torch.linspace(0, 1, 11, device=dev)
-    planes = xm.permute(2, 0, 1).contiguous()
     ms = {
         "K1": (lambda: stencil.neighbourhood_mean_cuda(bg0, 7, 7, mean),
                lambda: stencil.neighbourhood_mean_plain(bg0, 7, 7, mean)),
@@ -706,17 +789,66 @@ def main():
         "K4": (lambda: stencil.neighbourhood_quantile_fast_cuda(
                    uni, 0.5, 7, 7, thr11),
                lambda: nops._quantile_fast_xla(uni, 0.5, 7, thr11)),
-        "K5": (lambda: stencil.neighbourhood_members_cuda(xm, 7, 7, mean),
-               lambda: stencil.neighbourhood_members_plain(xm, 7, 7, mean)),
+        "K5": (lambda: stencil.neighbourhood_members_cuda(ens, 7, 7, mean),
+               lambda: stencil.neighbourhood_members_plain(ens, 7, 7, mean)),
     }
-    timing = {k: (event_ms(f), event_ms(p, reps=10)) for k, (f, p)
-              in ms.items()}
+    # one PyTorch call computing the same function on NaN-free input, where
+    # there is one (timed here only; the port never calls it). ens's
+    # (1, E, Y, X) view is channels-last memory, as (Y, X, E) is.
+    library = {
+        "K1": lambda: F.avg_pool2d(bg0[None, None], 15, 1, 7,
+                                   count_include_pad=False),
+        "K2": lambda: F.max_pool2d(bg0[None, None], 15, 1, 7),
+        "K5": lambda: F.avg_pool2d(ens.permute(2, 0, 1)[None], 15, 1, 7,
+                                   count_include_pad=False),
+    }
+    lib_out = {"K1": library["K1"]()[0, 0], "K2": library["K2"]()[0, 0],
+               "K5": library["K5"]()[0].permute(1, 2, 0)}
+    for k, want in lib_out.items():
+        ok, e = compare(ms[k][0](), want, (K1_RTOL, K1_ATOL))
+        check(ok, f"{k}: the library call computes the same function "
+                  f"(max|d|={e:.3g})")
+    del lib_out
+    cells = 2000 * 2000
+    t = thr11.numel()
+    lanes = 32 // stencil.qf_lane_bits(15 * 15)
+    # bytes: one f32 read and one f32 write of the field; operations: the
+    # separable window's adds or compares, K4's indicator compares, packed
+    # running adds and per-threshold divisions
+    work = {"K1": (8 * cells, 4 * 15 * cells, F32_OPS_S),
+            "K2": (8 * cells, 2 * 15 * cells, F32_OPS_S),
+            "K3": (8 * cells, 6 * 15 * cells, F32_OPS_S),
+            "K4": (8 * cells + 4 * t,
+                   cells * (2 * (t + 1) + 4 * -(-(t + 1) // lanes) + 3 * t),
+                   I32_OPS_S),
+            "K5": (8 * cells * N_ENS, 4 * 15 * cells * N_ENS, F32_OPS_S)}
+    timing = {}
+    for k, (kern, plain) in ms.items():
+        kt = event_ms(kern)
+        timing[k] = {
+            "ms": kt, "plain_ms": event_ms(plain, reps=10),
+            "device_ms": device_ms(kern),
+            "library_ms": event_ms(library[k]) if k in library else None}
+        timing[k]["bound_ms"], timing[k]["bound_by"] = bound_ms(*work[k])
+    ens_planes = ens.permute(2, 0, 1).contiguous()
     k1_members_ms = event_ms(lambda: [stencil.neighbourhood_mean_cuda(
-        planes[k], 7, 7, mean) for k in range(10)])
-    for k, (kt, pt) in timing.items():
-        print(f"  {k} ({wrappers[k].__name__}): kernel {kt:.4f} ms, plain "
-              f"{pt:.4f} ms", flush=True)
-    print(f"  K5 Mean 2000x2000x10 in one launch {timing['K5'][0]:.4f} ms; "
+        ens_planes[k], 7, 7, mean) for k in range(N_ENS)])
+    del ens_planes
+    k5_nan_ms = event_ms(lambda: stencil.neighbourhood_members_cuda(
+        xm, 7, 7, mean))
+
+    def fmt(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    for k, r in timing.items():
+        print(f"  {k} ({wrappers[k].__name__}): kernel {r['ms']:.4f} ms "
+              f"(device only {fmt(r['device_ms'])}), plain "
+              f"{r['plain_ms']:.4f} ms, library call "
+              f"{'none' if r['library_ms'] is None else fmt(r['library_ms'])}"
+              f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{r['bound_ms'] / r['ms']:.3f} of the bound", flush=True)
+    print(f"  K5 Mean 2000x2000x10 NaN-free in one launch "
+          f"{timing['K5']['ms']:.4f} ms, with 10% NaN {k5_nan_ms:.4f} ms; "
           f"10 launches of K1 on contiguous member planes "
           f"{k1_members_ms:.4f} ms", flush=True)
 
@@ -882,7 +1014,7 @@ def main():
                "K2": ("neighbourhood_minmax", f"{PALLAS}:364"),
                "K3": ("neighbourhood_var", f"{PALLAS}:330"),
                "K4": ("neighbourhood_quantile_fast", f"{PALLAS}:465"),
-               "K5": ("neighbourhood_mean", f"{PALLAS}:643")}
+               "K5": ("neighbourhood_members", f"{PALLAS}:643")}
     print(json.dumps({"kernels": [{
         "name": wrappers[k].__name__,
         "route": "cuda",
@@ -890,8 +1022,7 @@ def main():
         "replaces": sources[k][1],
         "launches": launches[k],
         "max_abs_err": err[k],
-        "ms": timing[k][0],
-        "plain_ms": timing[k][1]} for k in wrappers]}), flush=True)
+        **timing[k]} for k in wrappers]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

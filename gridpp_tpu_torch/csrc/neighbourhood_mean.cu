@@ -1,8 +1,8 @@
 // Neighbourhood Mean / Sum / Count stencil for Hopper (sm_90a).
 //
 // Replaces gridpp_tpu/ops/pallas_stencil.py::_mean_kernel (reached through
-// neighbourhood_mean) and, launched on the member-minor (Y, X, E) layout,
-// the Mean/Sum/Count half of ::_member_mean_kernel (neighbourhood_members).
+// neighbourhood_mean). The members of a (Y, X, E) ensemble have their own
+// kernel, K5 (neighbourhood_members.cu).
 // For every cell it computes the NaN-skipping sum and count over a
 // (2hy+1) x (2hx+1) window clipped at the domain edge: non-finite cells add
 // 0 to the sum and are left out of the count. Then
@@ -17,7 +17,7 @@
 // vertical pass into shared memory (sums and counts), then the horizontal
 // pass, and writes the finalized statistic. Each pass is a direct
 // (2h+1)-term sum, not a running add-and-subtract, so no error accumulates
-// along a row. Planes (a batch, or the members) ride on blockIdx.z.
+// along a row. The planes of a batch ride on blockIdx.z.
 //
 // Plain C interface, loaded with ctypes (gridpp_tpu_torch/ops/stencil.py).
 
@@ -29,7 +29,7 @@ using namespace stencil;
 
 __global__ void __launch_bounds__(kThreads)
 neighbourhood_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
-                          int ny, int nx, Layout lay, int hy, int hx,
+                          int ny, int nx, int hy, int hx,
                           int stat) {
   extern __shared__ float smem[];
   const int tile_w = kBX + 2 * hx;
@@ -38,7 +38,7 @@ neighbourhood_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
   float* vsum = tile + tile_h * tile_w;      // kBY x tile_w vertical sums
   float* vcnt = vsum + kBY * tile_w;         // kBY x tile_w vertical counts
 
-  load_halo_tile(x, lay, ny, nx, hy, hx, tile_h, tile_w, tile);
+  load_halo_tile(x, ny, nx, hy, hx, tile_h, tile_w, tile);
   __syncthreads();
 
   // vertical pass: (2hy+1)-term sums down each tile column.
@@ -63,7 +63,7 @@ neighbourhood_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
 
   // horizontal pass over the vertical sums, then finalize.
   const int len_x = 2 * hx + 1;
-  float* ob = out + blockIdx.z * lay.plane;
+  float* ob = out + static_cast<long long>(blockIdx.z) * ny * nx;
   for (int i = threadIdx.x; i < kBY * kBX; i += kThreads) {
     const int r = i / kBX;
     const int c = i - r * kBX;
@@ -86,7 +86,7 @@ neighbourhood_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
     } else {
       res = NAN;
     }
-    ob[gy * lay.row + gx * lay.col] = res;
+    ob[static_cast<long long>(gy) * nx + gx] = res;
   }
 }
 
@@ -94,13 +94,11 @@ neighbourhood_mean_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 extern "C" {
 
-// x, out: device pointers to `planes` planes of ny x nx f32, element (y, x)
-// of plane b at b * plane + y * row + x * col (the same layout for both).
+// x, out: device pointers to `planes` contiguous planes of ny x nx f32.
 // stream: a cudaStream_t of `device`. Returns 0, -1 when the halfwidths need
 // more shared memory than the device gives a block, or a cudaError_t.
 int nbm_launch(const float* x, float* out, int planes, int ny, int nx,
-               long long plane, long long row, long long col, int hy, int hx,
-               int stat, int device, void* stream) {
+               int hy, int hx, int stat, int device, void* stream) {
   const size_t smem =
       (tile_floats(hy, hx) + 2 * kBY * (kBX + 2 * static_cast<size_t>(hx))) *
       sizeof(float);
@@ -108,7 +106,7 @@ int nbm_launch(const float* x, float* out, int planes, int ny, int nx,
   if (err != 0) return err;
   neighbourhood_mean_kernel<<<grid_for(ny, nx, planes), kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
-      x, out, ny, nx, Layout{plane, row, col}, hy, hx, stat);
+      x, out, ny, nx, hy, hx, stat);
   return static_cast<int>(cudaGetLastError());
 }
 

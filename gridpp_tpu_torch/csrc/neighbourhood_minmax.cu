@@ -1,8 +1,8 @@
 // Neighbourhood Min / Max stencil for Hopper (sm_90a).
 //
 // Replaces gridpp_tpu/ops/pallas_stencil.py::_minmax_kernel (reached through
-// neighbourhood_minmax) and, launched on the member-minor (Y, X, E) layout,
-// the Min/Max half of ::_member_minmax_kernel (neighbourhood_members).
+// neighbourhood_minmax). The members of a (Y, X, E) ensemble have their own
+// kernel, K5 (neighbourhood_members.cu).
 // For every cell it takes the Min or Max over a (2hy+1) x (2hx+1) window
 // clipped at the domain edge. Non-finite cells are missing: they read as
 // the identity (+inf for Min, -inf for Max), and a window with no finite
@@ -34,7 +34,7 @@ template <bool kMax>
 __global__ void __launch_bounds__(kThreads)
 neighbourhood_minmax_kernel(const float* __restrict__ x,
                             float* __restrict__ out, int ny, int nx,
-                            Layout lay, int hy, int hx) {
+                            int hy, int hx) {
   extern __shared__ float smem[];
   const int tile_w = kBX + 2 * hx;
   const int tile_h = kBY + 2 * hy;
@@ -42,7 +42,7 @@ neighbourhood_minmax_kernel(const float* __restrict__ x,
   float* vext = tile + tile_h * tile_w;  // kBY x tile_w vertical extrema
   const float ident = kMax ? -INFINITY : INFINITY;
 
-  load_halo_tile(x, lay, ny, nx, hy, hx, tile_h, tile_w, tile);
+  load_halo_tile(x, ny, nx, hy, hx, tile_h, tile_w, tile);
   __syncthreads();
 
   const int len_y = 2 * hy + 1;
@@ -60,7 +60,7 @@ neighbourhood_minmax_kernel(const float* __restrict__ x,
   __syncthreads();
 
   const int len_x = 2 * hx + 1;
-  float* ob = out + blockIdx.z * lay.plane;
+  float* ob = out + static_cast<long long>(blockIdx.z) * ny * nx;
   for (int i = threadIdx.x; i < kBY * kBX; i += kThreads) {
     const int r = i / kBX;
     const int c = i - r * kBX;
@@ -72,7 +72,7 @@ neighbourhood_minmax_kernel(const float* __restrict__ x,
     for (int d = 0; d < len_x; ++d) {
       e = pick<kMax>(e, row[d]);
     }
-    ob[gy * lay.row + gx * lay.col] = isfinite(e) ? e : NAN;
+    ob[static_cast<long long>(gy) * nx + gx] = isfinite(e) ? e : NAN;
   }
 }
 
@@ -84,20 +84,19 @@ extern "C" {
 // Statistic.Max. Returns 0, -1 when the halfwidths need more shared memory
 // than the device gives a block, -2 for another statistic, or a cudaError_t.
 int nbx_launch(const float* x, float* out, int planes, int ny, int nx,
-               long long plane, long long row, long long col, int hy, int hx,
-               int stat, int device, void* stream) {
+               int hy, int hx, int stat, int device, void* stream) {
   if (stat != kStatMin && stat != kStatMax) return -2;
   const size_t smem =
       (tile_floats(hy, hx) + kBY * (kBX + 2 * static_cast<size_t>(hx))) *
       sizeof(float);
-  void (*kernel)(const float*, float*, int, int, Layout, int, int) =
+  void (*kernel)(const float*, float*, int, int, int, int) =
       neighbourhood_minmax_kernel<false>;
   if (stat == kStatMax) kernel = neighbourhood_minmax_kernel<true>;
   const int err = prepare_launch(kernel, smem, device);
   if (err != 0) return err;
   kernel<<<grid_for(ny, nx, planes), kThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      x, out, ny, nx, Layout{plane, row, col}, hy, hx);
+      x, out, ny, nx, hy, hx);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,7 +32,7 @@ using namespace stencil;
 
 __global__ void __launch_bounds__(kThreads)
 neighbourhood_var_kernel(const float* __restrict__ x, float* __restrict__ out,
-                         int ny, int nx, Layout lay, int hy, int hx,
+                         int ny, int nx, int hy, int hx,
                          bool is_std) {
   extern __shared__ float smem[];
   const int tile_w = kBX + 2 * hx;
@@ -42,7 +42,7 @@ neighbourhood_var_kernel(const float* __restrict__ x, float* __restrict__ out,
   float* vs2 = vs + kBY * tile_w;        // ... of squares
   float* vc = vs2 + kBY * tile_w;        // ... and counts
 
-  load_halo_tile(x, lay, ny, nx, hy, hx, tile_h, tile_w, tile);
+  load_halo_tile(x, ny, nx, hy, hx, tile_h, tile_w, tile);
   __syncthreads();
 
   const int len_y = 2 * hy + 1;
@@ -68,7 +68,7 @@ neighbourhood_var_kernel(const float* __restrict__ x, float* __restrict__ out,
   __syncthreads();
 
   const int len_x = 2 * hx + 1;
-  float* ob = out + blockIdx.z * lay.plane;
+  float* ob = out + static_cast<long long>(blockIdx.z) * ny * nx;
   for (int i = threadIdx.x; i < kBY * kBX; i += kThreads) {
     const int r = i / kBX;
     const int c = i - r * kBX;
@@ -92,7 +92,7 @@ neighbourhood_var_kernel(const float* __restrict__ x, float* __restrict__ out,
       res = __fsub_rn(mean2, __fmul_rn(mean, mean));
       if (is_std) res = __fsqrt_rn(res);
     }
-    ob[gy * lay.row + gx * lay.col] = res;
+    ob[static_cast<long long>(gy) * nx + gx] = res;
   }
 }
 
@@ -105,8 +105,7 @@ extern "C" {
 // memory than the device gives a block, -2 for another statistic, or a
 // cudaError_t.
 int nbv_launch(const float* x, float* out, int planes, int ny, int nx,
-               long long plane, long long row, long long col, int hy, int hx,
-               int stat, int device, void* stream) {
+               int hy, int hx, int stat, int device, void* stream) {
   if (stat != kStatStd && stat != kStatVariance) return -2;
   const size_t smem =
       (tile_floats(hy, hx) + 3 * kBY * (kBX + 2 * static_cast<size_t>(hx))) *
@@ -115,7 +114,7 @@ int nbv_launch(const float* x, float* out, int planes, int ny, int nx,
   if (err != 0) return err;
   neighbourhood_var_kernel<<<grid_for(ny, nx, planes), kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      x, out, ny, nx, Layout{plane, row, col}, hy, hx, stat == kStatStd);
+      x, out, ny, nx, hy, hx, stat == kStatStd);
   return static_cast<int>(cudaGetLastError());
 }
 

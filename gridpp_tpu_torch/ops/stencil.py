@@ -12,15 +12,17 @@ in parallel, as chip_smoke.py runs them) and bound with ctypes:
      replaces ::_var_kernel
   K4 neighbourhood_quantile_fast_cuda  csrc/neighbourhood_quantile_fast.cu
      replaces ::_qf_kernel
-  K5 neighbourhood_members_cuda        K1 and K2 launched on the (Y, X, E)
-     layout; replaces ::_member_mean_kernel and ::_member_minmax_kernel
+  K5 neighbourhood_members_cuda        csrc/neighbourhood_members.cu
+     replaces ::_member_mean_kernel and ::_member_minmax_kernel
 
 A `*_cuda` wrapper takes only a CUDA tensor and launches its kernel, or
 raises; it counts its launches in `<wrapper>.launches`. Beside each sits its
 plain PyTorch version (`*_plain`; K4's is
 ops/neighbourhood.py::_quantile_fast_xla): the CPU path, and the reference
 the kernel is held to on the card. ops/neighbourhood.py picks one by where
-the tensor lies; `neighbourhood_members` does so here.
+the tensor lies; `neighbourhood_members` does so here. K4 and K5 take a
+launch plan (`qf_plan`, `member_plan`) worked out here, in Python, so that
+the CPU tests reach it.
 
 The stencils take x of shape (Y, X) or (B, Y, X), f32, and halfwidths
 already clipped to the grid (hy <= Y - 1, hx <= X - 1); a leading axis is a
@@ -31,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,8 +47,9 @@ __all__ = [
     "neighbourhood_mean_cuda", "neighbourhood_mean_plain",
     "neighbourhood_minmax_cuda", "neighbourhood_minmax_plain",
     "neighbourhood_var_cuda", "neighbourhood_var_plain",
-    "neighbourhood_quantile_fast_cuda",
-    "neighbourhood_members", "neighbourhood_members_cuda",
+    "neighbourhood_quantile_fast_cuda", "qf_lane_bits", "qf_words",
+    "qf_plan",
+    "member_plan", "neighbourhood_members", "neighbourhood_members_cuda",
     "neighbourhood_members_plain",
 ]
 
@@ -58,20 +62,30 @@ MEMBER_STATS = MEAN_STATS + MINMAX_STATS
 KERNELS = {"neighbourhood_mean": "nbm_launch",
            "neighbourhood_minmax": "nbx_launch",
            "neighbourhood_var": "nbv_launch",
-           "neighbourhood_quantile_fast": "nbq_launch"}
+           "neighbourhood_quantile_fast": "nbq_launch",
+           "neighbourhood_members": "nbk_launch"}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _HEADER = os.path.join(_CSRC, "stencil_tile.cuh")
-_c_p, _c_i, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_c_p, _c_i = ctypes.c_void_p, ctypes.c_int
 # nbm_launch, nbx_launch and nbv_launch share one signature
-_STENCIL_ARGS = [_c_p, _c_p, _c_i, _c_i, _c_i, _c_ll, _c_ll, _c_ll, _c_i,
-                 _c_i, _c_i, _c_i, _c_p]
+_STENCIL_ARGS = [_c_p, _c_p] + [_c_i] * 6 + [_c_i, _c_p]
 _ARGTYPES = {"nbm_launch": _STENCIL_ARGS, "nbx_launch": _STENCIL_ARGS,
              "nbv_launch": _STENCIL_ARGS,
-             "nbq_launch": [_c_p, _c_p, _c_i, _c_p, _c_p, _c_i, _c_i, _c_i,
-                            _c_i, _c_i, _c_p]}
+             "nbq_launch": [_c_p, _c_p, _c_i, _c_p, _c_p] + [_c_i] * 8
+             + [_c_i, _c_p],
+             "nbk_launch": [_c_p, _c_p] + [_c_i] * 9 + [_c_i, _c_p]}
 _libs: dict = {}
+
+# the dynamic shared memory one block may opt in to on an H100 (232,448
+# bytes); the launch functions check the device's own limit again
+SMEM_LIMIT = 232448
+# K4's output patch (kBY x kBX, csrc/stencil_tile.cuh)
+QF_BY, QF_BX = 32, 64
+# K5's output rows per block (kRows, csrc/neighbourhood_members.cu) and
+# the tile row width it aims at, in floats
+K5_ROWS, K5_WIDTH = 16, 480
 
 
 def _nvcc() -> str:
@@ -154,8 +168,7 @@ def _plane_stencil(name, wrapper, x, hy, hx, stat):
         return out
     b = x.shape[0] if x.dim() == 3 else 1
     ny, nx = x.shape[-2:]
-    _launch(name, x, x.data_ptr(), out.data_ptr(), b, ny, nx, ny * nx, nx,
-            1, hy, hx, stat)
+    _launch(name, x, x.data_ptr(), out.data_ptr(), b, ny, nx, hy, hx, stat)
     wrapper.launches += 1
     return out
 
@@ -265,6 +278,60 @@ def neighbourhood_var_plain(x: torch.Tensor, hy: int, hx: int,
 
 
 # -- K4: threshold-CDF quantile -----------------------------------------------
+def qf_lane_bits(window_cells: int) -> int:
+    """Width in bits of one packed count lane of K4 for a window of
+    `window_cells` cells: a lane must hold counts up to the window size, so
+    8 bits while it is <= 255, 16 while <= 65535, else 32 (one count per
+    int32 word). gridpp_tpu/ops/pallas_stencil.py:510-512 packs the same."""
+    if window_cells <= 255:
+        return 8
+    if window_cells <= 65535:
+        return 16
+    return 32
+
+
+def qf_words(t: int, bits: int) -> int:
+    """Packed int32 words a cell of K4 needs for t thresholds in `bits`-wide
+    lanes: lane 0 counts the finite cells, lane k + 1 threshold k."""
+    return -(-(t + 1) // (32 // bits))
+
+
+class QfPlan(NamedTuple):
+    """K4's launch plan: `bits`-wide lanes, `words` packed words a cell,
+    `group` words summed together (1, 2 or 4; one pass where group >=
+    words), `pitch` of the vertical sums, `smem` bytes."""
+    bits: int
+    words: int
+    group: int
+    pitch: int
+    smem: int
+
+
+def qf_plan(hy: int, hx: int, t: int) -> QfPlan:
+    """K4's plan for clipped halfwidths (hy, hx) and t thresholds. The
+    block's halo tile (kBY + 2hy) x (kBX + 2hx) floats takes shared memory
+    beside `group` planes of kBY x pitch vertical sums; the plan takes the
+    one pass over the fewest words that hold all of a cell's counts, else
+    the largest group that fits, and an odd pitch (free of bank conflicts)
+    where it fits. Raises a "shared memory" ValueError where not even one
+    word a group fits; that takes every halfwidth a per-threshold count
+    with one plane of vertical counts takes."""
+    bits = qf_lane_bits((2 * hy + 1) * (2 * hx + 1))
+    words = qf_words(t, bits)
+    tw = QF_BX + 2 * hx
+    # the tile, which the staged outputs (QF_BY x (QF_BX + 1)) overwrite
+    tile = max((QF_BY + 2 * hy) * tw, QF_BY * (QF_BX + 1))
+    for pitch in (tw | 1, tw):
+        groups = [g for g in (1, 2, 4) if g >= words] + [4, 2, 1]
+        for group in groups:
+            smem = 4 * (tile + group * QF_BY * pitch)
+            if smem <= SMEM_LIMIT:
+                return QfPlan(bits, words, group, pitch, smem)
+    raise ValueError(f"neighbourhood_quantile_fast: halfwidths ({hy}, {hx}) "
+                     "need more shared memory than the device gives one "
+                     "block")
+
+
 def neighbourhood_quantile_fast_cuda(x: torch.Tensor, quantile, hy: int,
                                      hx: int, thresholds: torch.Tensor
                                      ) -> torch.Tensor:
@@ -286,8 +353,10 @@ def neighbourhood_quantile_fast_cuda(x: torch.Tensor, quantile, hy: int,
     if x.numel() == 0:
         return out
     ny, nx = x.shape
+    plan = qf_plan(hy, hx, thr.numel())
     _launch("neighbourhood_quantile_fast", x, x.data_ptr(), thr.data_ptr(),
-            thr.numel(), q.data_ptr(), out.data_ptr(), ny, nx, hy, hx)
+            thr.numel(), q.data_ptr(), out.data_ptr(), ny, nx, hy, hx,
+            plan.bits, plan.words, plan.group, plan.pitch)
     neighbourhood_quantile_fast_cuda.launches += 1
     return out
 
@@ -324,11 +393,43 @@ def neighbourhood_members(x: torch.Tensor, halfwidth: int,
     return neighbourhood_members_plain(x, hy, hx, statistic)
 
 
+class MemberPlan(NamedTuple):
+    """K5's launch plan: a block owns K5_ROWS x `bx` grid cells of `chunk`
+    members; its halo tile rows are `pitch` floats; `smem` bytes."""
+    bx: int
+    chunk: int
+    pitch: int
+    smem: int
+
+
+def member_plan(nx: int, e: int, hy: int, hx: int, stat: int) -> MemberPlan:
+    """K5's plan for a (Y, nx, e) field and clipped halfwidths. A block
+    takes every member where shared memory allows (its tile rows are then
+    contiguous runs of the (Y, X * E) view), else the largest chunk that
+    fits, and about K5_WIDTH floats of tile row: bx = K5_WIDTH // chunk -
+    2hx grid columns, at least 1, and fewer where the tile would not fit.
+    Shared memory: the (K5_ROWS + 2hy) x pitch f32 tile, plus K5_ROWS x
+    pitch 16-bit vertical counts for Mean/Sum/Count; the pitch is
+    (bx + 2hx) * chunk + 3 rounded up to 4 floats (room for each row's
+    16-byte alignment shift). Raises a "shared memory" ValueError where not
+    even one member of one grid column fits."""
+    per_pitch = 4 * (K5_ROWS + 2 * hy) + (2 * K5_ROWS
+                                          if int(stat) in MEAN_STATS else 0)
+    widest = SMEM_LIMIT // per_pitch // 4 * 4 - 3  # tile row floats
+    for chunk in range(e, 0, -1):
+        bx = min(max(1, K5_WIDTH // chunk - 2 * hx), nx,
+                 widest // chunk - 2 * hx)
+        if bx >= 1:
+            pitch = -(-((bx + 2 * hx) * chunk + 3) // 4) * 4
+            return MemberPlan(bx, chunk, pitch, per_pitch * pitch)
+    raise ValueError(f"neighbourhood_members: halfwidths ({hy}, {hx}) need "
+                     "more shared memory than the device gives one block")
+
+
 def neighbourhood_members_cuda(x: torch.Tensor, hy: int, hx: int,
                                stat: int) -> torch.Tensor:
-    """Launch K5 on a contiguous (Y, X, E) CUDA tensor: one launch of K1
-    (Mean/Sum/Count) or K2 (Min/Max) with the member as blockIdx.z and E
-    as the column stride; returns (Y, X, E)."""
+    """Launch K5 on a contiguous (Y, X, E) CUDA tensor (member_plan's
+    tiling); returns (Y, X, E)."""
     stat = int(stat)
     if x.dim() != 3:
         raise ValueError(f"expected (Y, X, E), got {tuple(x.shape)}")
@@ -339,10 +440,9 @@ def neighbourhood_members_cuda(x: torch.Tensor, hy: int, hx: int,
     if x.numel() == 0:
         return out
     ny, nx, e = x.shape
-    name = ("neighbourhood_minmax" if stat in MINMAX_STATS
-            else "neighbourhood_mean")
-    _launch(name, x, x.data_ptr(), out.data_ptr(), e, ny, nx, 1, nx * e, e,
-            hy, hx, stat)
+    plan = member_plan(nx, e, hy, hx, stat)
+    _launch("neighbourhood_members", x, x.data_ptr(), out.data_ptr(), ny, nx,
+            e, hy, hx, plan.bx, plan.chunk, plan.pitch, stat)
     neighbourhood_members_cuda.launches += 1
     return out
 

@@ -4,13 +4,14 @@ one).
 Each kernel is held to its plain PyTorch version on the same card, at the
 bars of tests/test_pallas_stencil.py: K1 and K5's Mean/Sum/Count rtol 1e-5,
 atol 1e-4 (:36-38, :199); K2 and K5's Min/Max bit for bit (order-free);
-K3 rtol 2e-5, atol 2e-3 (:220); K4 rtol/atol 1e-5 (:67) and bit for bit on
-exact cdf ties (:70-85). Every kernel's launch counter moves by one per
-launch. The pipelines on the card agree with their CPU runs (the plain
-versions): Pipeline within 1e-3, EnsiPipeline and utem within 2e-3, ebe and
-ebesc within 1e-3; an EnSI cycle smoothed with Mean launches K5 once. The
-six OI API functions on their device route (the module function under the
-card as default device) stay within 1e-2 of their host route.
+K3 rtol 2e-5, atol 2e-3 (:220); K4 bit for bit, NaN positions included,
+ties (:70-85) and the lane-width boundary too. Every kernel's launch
+counter moves by one per launch. The pipelines on the card agree with
+their CPU runs (the plain versions): Pipeline within 1e-3, EnsiPipeline
+and utem within 2e-3, ebe and ebesc within 1e-3; an EnSI cycle smoothed
+with Mean launches K5 once. The six OI API functions on their device route
+(the module function under the card as default device) stay within 1e-2
+of their host route.
 
 This file imports no jax, so it also runs on a machine with the card and
 no JAX installed:
@@ -30,7 +31,6 @@ pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=1e-5, atol=1e-4)  # tests/test_pallas_stencil.py:36-38
 VAR_TOL = dict(rtol=2e-5, atol=2e-3)  # :220
-QF_TOL = dict(rtol=1e-5, atol=1e-5)  # :67
 SHAPES = [((40, 60), 3), ((17, 250), 7), ((300, 129), 1), ((31, 31), 0),
           ((256, 129), 7), ((160, 128), 3), ((256, 300), 7), ((12, 9), 20),
           ((3, 256, 300), 7), ((2000, 2000), 7)]
@@ -116,19 +116,44 @@ def test_quantile_fast_kernel_matches_plain(dev, q, shape, h, t):
     torch.cuda.synchronize()
     assert stencil.neighbourhood_quantile_fast_cuda.launches == before + 1
     want = tops._quantile_fast_xla(xd, q, h, thrd)
-    _assert_matches(got, want, QF_TOL)
+    _assert_matches(got, want, None)  # bit for bit, the kernel's contract
 
 
+@pytest.mark.parametrize("t", [1, 4, 5, 12, 33])
+@pytest.mark.parametrize("shape,h", [((256, 300), 7), ((256, 300), 8),
+                                     ((180, 200), 88)])
+def test_quantile_fast_kernel_packed_lanes(dev, shape, h, t):
+    """K4 bit for bit on either side of the 8/16-bit lane boundary (h=7:
+    225 cells, h=8: 289), with thresholds that fill, straddle and overflow
+    its packed words (one pass or streamed groups), unsorted at T=12, and
+    at the largest halfwidth a per-threshold K4 takes (h=88; there the
+    plain version runs on the CPU, since K1, which it calls on the card,
+    needs more shared memory than a block has)."""
+    x = _field(shape, seed=h + t)
+    thr = np.quantile(x[np.isfinite(x)], np.linspace(0, 1, t)).astype(
+        np.float32)
+    if t == 12:
+        thr = np.random.default_rng(t).permutation(thr)
+    xd, thrd = torch.as_tensor(x, device=dev), torch.as_tensor(thr,
+                                                               device=dev)
+    on = dev if h < 88 else torch.device("cpu")
+    for q in (0.1, 0.5, 1.0):
+        got = tops.neighbourhood_quantile_fast(xd, q, h, thrd)
+        want = tops._quantile_fast_xla(xd.to(on), q, h, thrd.to(on))
+        _assert_matches(got, want, None)
+
+
+@pytest.mark.parametrize("h", [1, 7, 8])
 @pytest.mark.parametrize("q", [float(np.float32(1.0 / 3.0)), 0.5, 0.25,
                                float(np.float32(2.0 / 9.0))])
-def test_quantile_fast_kernel_exact_ties(dev, q):
+def test_quantile_fast_kernel_exact_ties(dev, q, h):
     rng = np.random.default_rng(11)
     x = rng.integers(0, 5, (30, 40)).astype(np.float32)
     x[4, 7] = np.nan
     xd = torch.as_tensor(x, device=dev)
     thr = torch.arange(5, dtype=torch.float32, device=dev)
-    got = tops.neighbourhood_quantile_fast(xd, q, 1, thr)
-    _assert_matches(got, tops._quantile_fast_xla(xd, q, 1, thr), None)
+    got = tops.neighbourhood_quantile_fast(xd, q, h, thr)
+    _assert_matches(got, tops._quantile_fast_xla(xd, q, h, thr), None)
 
 
 def test_quantile_fast_kernel_nan_quantile_and_region(dev):
@@ -138,7 +163,7 @@ def test_quantile_fast_kernel_nan_quantile_and_region(dev):
     thr = torch.linspace(-30, 30, 9, device=dev)
     got = tops.neighbourhood_quantile_fast(xd, torch.tensor(0.5, device=dev),
                                            2, thr)
-    _assert_matches(got, tops._quantile_fast_xla(xd, 0.5, 2, thr), QF_TOL)
+    _assert_matches(got, tops._quantile_fast_xla(xd, 0.5, 2, thr), None)
     assert torch.isnan(
         tops.neighbourhood_quantile_fast(xd, float("nan"), 2, thr)).all()
     with pytest.raises(ValueError, match="thresholds"):
@@ -148,10 +173,14 @@ def test_quantile_fast_kernel_nan_quantile_and_region(dev):
 @pytest.mark.parametrize("stat", stencil.MEMBER_STATS)
 @pytest.mark.parametrize("shape,h", [((40, 60, 4), 3), ((17, 250, 2), 7),
                                      ((31, 31, 6), 0),
-                                     ((2000, 2000, 10), 7)])
+                                     ((2000, 2000, 10), 7),
+                                     ((130, 257, 1), 7), ((130, 257, 3), 2),
+                                     ((130, 257, 3), 7), ((130, 257, 10), 7),
+                                     ((130, 257, 25), 7), ((9, 5, 64), 30)])
 def test_members_kernel_matches_plain(dev, stat, shape, h):
     """K5 in one launch against its plain version and against K1/K2 on
-    each member."""
+    each member; X * E is not a multiple of 4 at X = 257 (unaligned tile
+    rows)."""
     x = torch.as_tensor(_field(shape, seed=h), device=dev)
     before = stencil.neighbourhood_members_cuda.launches
     got = stencil.neighbourhood_members(x, h, stat)
@@ -169,6 +198,23 @@ def test_members_kernel_matches_plain(dev, stat, shape, h):
     else:
         _assert_matches(got, stencil.neighbourhood_members(x.cpu(), 0, stat),
                         None)
+
+
+@pytest.mark.parametrize("stat", stencil.MEMBER_STATS)
+def test_members_kernel_on_an_ensemble(dev, stat):
+    """K5 on EnSI's input, a NaN-free 2000 x 2000 x 10 normal(280, 5)
+    ensemble (each block takes the analytic count), against its plain
+    version and K1/K2 on the first and last member."""
+    x = torch.as_tensor(np.random.default_rng(5).normal(
+        280, 5, (2000, 2000, 10)).astype(np.float32), device=dev)
+    tol = None if stat in stencil.MINMAX_STATS else TOL
+    got = stencil.neighbourhood_members(x, 7, stat)
+    _assert_matches(got, stencil.neighbourhood_members_plain(x, 7, 7, stat),
+                    tol)
+    for k in (0, 9):
+        _assert_matches(got[:, :, k],
+                        tops.neighbourhood(x[:, :, k].contiguous(), 7, stat),
+                        tol)
 
 
 def _problem(seed=7, n=80, n_obs=120):

@@ -135,10 +135,14 @@ def test_brute_force_ens_matches_jax():
 
 @pytest.mark.parametrize("q", [0.0, 0.25, 0.5, 0.9, 1.0])
 @pytest.mark.parametrize("shape,h,t", [((40, 60), 3, 11), ((17, 140), 7, 5),
-                                       ((33, 33), 2, 20), ((24, 24), 0, 7)])
+                                       ((33, 33), 2, 20), ((24, 24), 0, 7),
+                                       ((40, 60), 8, 11), ((40, 60), 7, 1),
+                                       ((40, 60), 7, 4), ((36, 50), 8, 5),
+                                       ((40, 60), 7, 33)])
 def test_quantile_fast_matches_jax(q, shape, h, t):
     """K4's plain version against gridpp_tpu's XLA path and its Pallas
-    kernel (tests/test_pallas_stencil.py:54-67)."""
+    kernel (tests/test_pallas_stencil.py:54-67); the Pallas kernel packs
+    4 counts to an int32 at h=7 and 2 at h=8, as K4 does."""
     x = _field(shape, seed=h + t)
     thr = np.quantile(x[np.isfinite(x)],
                       np.linspace(0, 1, t)).astype(np.float32)
