@@ -6,22 +6,31 @@ OI API paths on one CUDA card.
 Run from the root of a checkout. In order it:
 1. requires a CUDA card (there is no CPU path) and prints its name and
    power limit; TF32 is switched off for matmul and cuDNN;
-2. builds the kernels K1-K5 (csrc/*.cu, one nvcc per source, all started
-   together) and the native host library, and prints the build times and
-   the compiler's resource report;
+2. builds the kernels K1-K5 and their wide route (csrc/*.cu, one nvcc
+   per source, all started together) and the native host library, and
+   prints the build times and the compiler's resource report;
 3. holds every kernel against its plain PyTorch version on the card, on
    K1's cases (2000 x 2000 with 0% and 10% NaN, small edge shapes, a
-   batched (3, 256, 300)): K1 (Mean/Sum/Count) rtol 1e-5, atol 1e-4; K2
-   (Min/Max) equality; K3 (Std/Variance) rtol 2e-5, atol 2e-3; K4
-   (quantile_fast) bit for bit, NaN positions included, at q in {0, 0.25,
-   0.5, 0.9, 1}, at h=7 and h=8 (either side of its 8/16-bit lane width)
-   and h=88 (the largest a per-threshold K4 took) with T in {1, 4, 5,
-   11, 12, 33} (unsorted at 12), on exact cdf ties at h in {1, 7, 8}, all
-   NaN for a NaN q; K5 (members) at E in {1, 3, 10, 25} on (130, 257, E)
-   (X * E not a multiple of 4), at 2000 x 2000 x 10 with 10% NaN and on a
-   NaN-free normal(280, 5) ensemble: rtol 1e-5, atol 1e-4 for
-   Mean/Sum/Count and equality for Min/Max, against its plain version and
-   against K1/K2 on the first and last member;
+   batched (3, 256, 300), and K1/K2's strip edges: 1-row and 1-column
+   fields, X not a multiple of 4 or 128, hx above the register cap (9,
+   32), the largest halfwidth at which both stay fused (60), a NaN-free
+   field with a few NaN): K1
+   (Mean/Sum/Count) rtol 1e-5, atol 1e-4; K2 (Min/Max) equality; K3
+   (Std/Variance) rtol 2e-5, atol 2e-3; K4 (quantile_fast) bit for bit,
+   NaN positions included, at q in {0, 0.25, 0.5, 0.9, 1}, at h=7 and h=8
+   (either side of its 8/16-bit lane width) and h=88 (the largest its
+   one-block kernel takes) with T in {1, 4, 5, 11, 12, 33} (unsorted at
+   12), on exact cdf ties at h in {1, 7, 8}, all NaN for a NaN q; K5
+   (members) at E in {1, 3, 10, 25} on (130, 257, E) (X * E not a
+   multiple of 4), at 2000 x 2000 x 10 with 10% NaN and on a NaN-free
+   normal(280, 5) ensemble: rtol 1e-5, atol 1e-4 for Mean/Sum/Count and
+   equality for Min/Max, against its plain version and against K1/K2 on
+   the first and last member. Then the wide route
+   (ops/stencil.py::stencil_plan picks it past each kernel's crossover):
+   K1-K3 at h in {81, 100, 300} on
+   the 2000 x 2000 normal(280, 5) field with 10% NaN (its anomaly for K3),
+   K4 at h=120 bit for bit, K5 at h=150 on 2000 x 2000 x 10, each call
+   counted on the wrapper's wide counter;
 4. times each kernel, its plain version and, where one PyTorch call
    computes the same function (NaN-free input), that call, by CUDA events
    at full width, and the kernel's device time alone from torch.profiler:
@@ -32,14 +41,18 @@ Run from the root of a checkout. In order it:
    channels-last (1, E, Y, X) view), beside 10 launches of K1 on its
    contiguous member planes and beside K5 on the 10%-NaN field; prints
    each kernel's bound (one read and one write at 3.35 TB/s, or its
-   operations at the H100's f32/int32 rate, whichever is longer);
+   operations at the H100's f32/int32 rate, whichever is longer); then
+   each kernel at h=100 and h=300 by the route its plan picks (the wide
+   route), beside its bound, its plain version and, at
+   h=100, F.avg_pool2d / F.max_pool2d for K1/K2;
 5. the serving path: builds Pipeline at the benchmark configuration
    (2000 x 2000 grid, 10,000 obs, BarnesStructure(10 km), max_points=10,
    neighbourhood Mean h=7, ratios 0.1, seed 0) on the card, runs cycles of
    the fast, general and resolve paths on distinct inputs plus one cycle
    with a third of the obs missing, and checks: finite output, general ==
    resolve bit for bit, fast within 1e-3 of general, one K1 launch per
-   cycle; prints each path's median cycle time;
+   cycle; prints each path's median cycle time; then the same with Mean
+   h=100, each cycle's K1 call through the wide route;
 6. the neighbourhood-statistics path, with every launch count set to 0
    before it and read after: the same Pipeline smoothed with Max h=7
    (checks as in 5, one K2 launch per cycle), then ops.neighbourhood Std
@@ -85,7 +98,8 @@ Run from the root of a checkout. In order it:
    share of cells within 2e-4 printed.
 
 Any failed check raises. The line before the last is a JSON record of the
-kernels; the last line is {"ok": true, "device": {...}}.
+kernels (K1-K5 and the wide route, whose launches are phase 5's h=100
+cycles); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -115,6 +129,9 @@ PALLAS = "gridpp_tpu/ops/pallas_stencil.py"
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 I32_OPS_S = F32_OPS_S / 2
+# output rows that the wide route's column fold shares its window's core
+# between (kRun, csrc/neighbourhood_wide.cu)
+WIDE_RUN = 16
 
 
 def check(cond, what):
@@ -123,8 +140,8 @@ def check(cond, what):
     print(f"  ok: {what}", flush=True)
 
 
-def field(rng, shape, nan_frac):
-    x = rng.normal(0, 10, shape).astype(np.float32)
+def field(rng, shape, nan_frac, mean=0.0, std=10.0):
+    x = rng.normal(mean, std, shape).astype(np.float32)
     x[rng.random(shape) < nan_frac] = np.nan
     return x
 
@@ -638,7 +655,7 @@ def main():
     with ThreadPoolExecutor(len(stencil.KERNELS)) as pool:
         builds = dict(zip(stencil.KERNELS,
                           pool.map(timed_build, stencil.KERNELS)))
-    print(f"  K1-K5: {len(builds)} nvcc in parallel, "
+    print(f"  K1-K5 and the wide route: {len(builds)} nvcc in parallel, "
           f"{time.perf_counter() - t0:.3f} s in all", flush=True)
     for name, (lib, secs) in builds.items():
         print(f"  -- {name}: {secs:.3f} s\n{build_log(lib)}", flush=True)
@@ -651,7 +668,10 @@ def main():
     cases = [((2000, 2000), 7, 0.0), ((2000, 2000), 7, 0.1),
              ((40, 60), 3, 0.1), ((17, 250), 7, 0.1), ((300, 129), 1, 0.1),
              ((31, 31), 0, 0.1), ((256, 129), 7, 0.1), ((160, 128), 3, 0.1),
-             ((256, 300), 7, 0.1), ((3, 256, 300), 7, 0.1)]
+             ((256, 300), 7, 0.1), ((3, 256, 300), 7, 0.1),
+             ((1, 500), 3, 0.1), ((500, 1), 3, 0.1), ((97, 301), 7, 0.1),
+             ((33, 129), 9, 0.1), ((200, 130), 32, 0.1),
+             ((200, 130), 60, 0.1), ((300, 400), 7, 1e-5)]
     # statistic -> (kernel, its wrapper, its plain version, bar)
     plane_kernels = [
         (stat, "K1", stencil.neighbourhood_mean_cuda,
@@ -666,17 +686,23 @@ def main():
     err = dict.fromkeys(wrappers, 0.0)
     print("[K1, K2, K3 vs plain versions]", flush=True)
     for shape, h, nan_frac in cases:
-        x = torch.as_tensor(field(rng, shape, nan_frac), device=dev)
+        # the h >= 32 and the sparse-NaN cases on a 280 K field: wide
+        # windows of a zero-mean field cancel below f32's rounding of the
+        # partial sums
+        mu = 280.0 if h >= 32 or nan_frac < 0.01 else 0.0
+        x = torch.as_tensor(field(rng, shape, nan_frac, mu, 5.0 if mu
+                                  else 10.0), device=dev)
         hy = min(h, shape[-2] - 1)
         hx = min(h, shape[-1] - 1)
         for stat, k, kernel, plain, tol in plane_kernels:
+            xs = x - 280.0 if mu and stat in stencil.VAR_STATS else x
             if h == 0:
                 # h = 0 never launches a kernel (the ops' pass-through)
-                got = nops.neighbourhood(x, 0, stat)
-                want = nops.neighbourhood(x.cpu(), 0, stat).to(dev)
+                got = nops.neighbourhood(xs, 0, stat)
+                want = nops.neighbourhood(xs.cpu(), 0, stat).to(dev)
             else:
-                got = kernel(x, hy, hx, stat)
-                want = plain(x, hy, hx, stat)
+                got = kernel(xs, hy, hx, stat)
+                want = plain(xs, hy, hx, stat)
             ok, e = compare(got, want, tol)
             check(ok, f"{k} {shape} h={h} nan={nan_frac} stat={stat} "
                       f"max|d|={e:.3g}")
@@ -684,7 +710,7 @@ def main():
 
     print("[K4 vs plain version]", flush=True)
     for shape, h, nan_frac in cases:
-        if len(shape) != 2:
+        if len(shape) != 2 or min(shape) == 1 or nan_frac < 0.01:
             continue
         xn = field(rng, shape, nan_frac)
         thr = np.quantile(xn[np.isfinite(xn)],
@@ -701,10 +727,9 @@ def main():
             err["K4"] = max(err["K4"], e)
     # either side of the 8/16-bit lane boundary (h=7: 225 cells, h=8: 289),
     # thresholds that fill, straddle and overflow the packed words, and the
-    # largest halfwidth a K4 that counts each threshold separately takes
-    # (h=88: (64 + 2h)^2 floats of shared memory; there the plain version
-    # runs on the CPU, since K1, which it calls on the card, needs more
-    # shared memory); thresholds unsorted in one case
+    # largest halfwidth its one-block kernel takes (h=88; the plain version
+    # calls K1 on the card, which takes h=88 by the wide route); thresholds
+    # unsorted in one case
     for shape, h, qs in (((256, 300), 7, (0.1, 0.5, 1.0)),
                          ((256, 300), 8, (0.1, 0.5, 1.0)),
                          ((180, 200), 88, (0.5,))):
@@ -719,9 +744,7 @@ def main():
             for q in qs:
                 got = stencil.neighbourhood_quantile_fast_cuda(x, q, h, h,
                                                                thr)
-                on = x.device if h < 88 else torch.device("cpu")
-                want = nops._quantile_fast_xla(x.to(on), q, h,
-                                               thr.to(on)).to(dev)
+                want = nops._quantile_fast_xla(x, q, h, thr)
                 ok, e = compare(got, want, None)
                 check(ok, f"K4 {shape} h={h} T={t} q={q} equal")
     ties = torch.as_tensor(
@@ -770,6 +793,53 @@ def main():
                 check(ok, f"K5 {label} stat={stat} member {k} vs K1/K2 "
                           f"max|d|={e:.3g}")
     del k5_cases
+
+    print("[wide route vs plain versions]", flush=True)
+    wide_err = 0.0
+    for w in wrappers.values():
+        w.wide = 0
+    x280 = torch.as_tensor(field(rng, (2000, 2000), 0.1, 280.0, 5.0),
+                           device=dev)
+    for h in (81, 100, 300):
+        for stat, k, kernel, plain, tol in plane_kernels:
+            xs = x280 - 280.0 if stat in stencil.VAR_STATS else x280
+            ok, e = compare(kernel(xs, h, h, stat), plain(xs, h, h, stat),
+                            tol)
+            check(ok, f"{k} wide 2000x2000 h={h} stat={stat} max|d|={e:.3g}")
+            wide_err = max(wide_err, e)
+    xq = torch.as_tensor(field(rng, (2000, 2000), 0.1), device=dev)
+    thrq = torch.as_tensor(np.quantile(
+        xq.cpu().numpy()[np.isfinite(xq.cpu().numpy())],
+        np.linspace(0, 1, 11)).astype(np.float32), device=dev)
+    for q in (0.25, 0.5, 0.9):
+        ok, e = compare(stencil.neighbourhood_quantile_fast_cuda(
+            xq, q, 120, 120, thrq), nops._quantile_fast_xla(xq, q, 120, thrq),
+            None)
+        check(ok, f"K4 wide 2000x2000 h=120 T=11 q={q} equal")
+    del xq
+    xw = torch.as_tensor(field(rng, (2000, 2000, N_ENS), 0.1, 280.0, 5.0),
+                         device=dev)
+    for stat in stencil.MEMBER_STATS:
+        tol = None if stat in stencil.MINMAX_STATS else (K1_RTOL, K1_ATOL)
+        ok, e = compare(stencil.neighbourhood_members_cuda(xw, 150, 150, stat),
+                        stencil.neighbourhood_members_plain(xw, 150, 150,
+                                                            stat), tol)
+        check(ok, f"K5 wide 2000x2000x10 h=150 stat={stat} max|d|={e:.3g}")
+        wide_err = max(wide_err, e)
+    del xw
+    wide_calls = {k: w.wide for k, w in wrappers.items()}
+    # the plan's routes, and the plain K4's smoothing of its (11, Y, X)
+    # stack at h=120 through K1
+    want_calls = {k: sum(stencil.stencil_plan(k, (2000, 2000), h, h, st)
+                         .route == "wide" for h in (81, 100, 300)
+                         for st in stats)
+                  for k, stats in (("K1", stencil.MEAN_STATS),
+                                   ("K2", stencil.MINMAX_STATS),
+                                   ("K3", stencil.VAR_STATS))}
+    want_calls["K1"] += 3
+    want_calls.update(K4=3, K5=len(stencil.MEMBER_STATS))
+    check(wide_calls == want_calls,
+          f"the wide cases took the plan's routes: {wide_calls}")
 
     # -- 4. timings --
     print("[timings, CUDA events]", flush=True)
@@ -847,6 +917,69 @@ def main():
               f"{'none' if r['library_ms'] is None else fmt(r['library_ms'])}"
               f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.3f} of the bound", flush=True)
+    # the same functions at wide halfwidths, by the route the plan picks.
+    # Bound: the same bytes (the route's scratch round trip is its own
+    # choice and not counted); operations: a direct fold that shares each
+    # window's core between WIDE_RUN outputs takes (2 WIDE_RUN + 2h) /
+    # WIDE_RUN terms a cell and pass, and K4's exact integer counts allow
+    # running sums, so it takes h=7's count with lanes as wide as h needs
+    wide_ms = {}
+    for h in (100, 300):
+        n_w = (2 * WIDE_RUN + 2 * h) / WIDE_RUN
+        words = stencil.qf_words(t, stencil.qf_lane_bits((2 * h + 1) ** 2))
+        wide_work = {
+            "K1": (8 * cells, 4 * n_w * cells, F32_OPS_S),
+            "K2": (8 * cells, 2 * n_w * cells, F32_OPS_S),
+            "K3": (8 * cells, 6 * n_w * cells, F32_OPS_S),
+            "K4": (8 * cells + 4 * t,
+                   cells * (2 * (t + 1) + 4 * words + 3 * t), I32_OPS_S),
+            "K5": (8 * cells * N_ENS, 4 * n_w * cells * N_ENS, F32_OPS_S)}
+        wide_fns = {
+            "K1": (lambda: stencil.neighbourhood_mean_cuda(bg0, h, h, mean),
+                   lambda: stencil.neighbourhood_mean_plain(bg0, h, h, mean)),
+            "K2": (lambda: stencil.neighbourhood_minmax_cuda(bg0, h, h, mx),
+                   lambda: stencil.neighbourhood_minmax_plain(bg0, h, h, mx)),
+            "K3": (lambda: stencil.neighbourhood_var_cuda(anom, h, h, std),
+                   lambda: stencil.neighbourhood_var_plain(anom, h, h, std)),
+            "K4": (lambda: stencil.neighbourhood_quantile_fast_cuda(
+                       uni, 0.5, h, h, thr11),
+                   lambda: nops._quantile_fast_xla(uni, 0.5, h, thr11)),
+            "K5": (lambda: stencil.neighbourhood_members_cuda(ens, h, h,
+                                                              mean),
+                   lambda: stencil.neighbourhood_members_plain(ens, h, h,
+                                                               mean))}
+        for k, (kern, plain) in wide_fns.items():
+            shape = ens.shape if k == "K5" else bg0.shape
+            route = stencil.stencil_plan(k, shape, h, h, mean if k in (
+                "K1", "K5") else mx if k == "K2" else std, t=t).route
+            b_ms, b_by = bound_ms(*wide_work[k])
+            wide_ms[(k, h)] = {"ms": event_ms(kern, reps=5),
+                               "device_ms": device_ms(kern, reps=5),
+                               "plain_ms": event_ms(plain, reps=2),
+                               "bound_ms": b_ms, "bound_by": b_by,
+                               "route": route}
+            r = wide_ms[(k, h)]
+            # the library's pooling at h=100 (a direct (2h+1)^2 window a
+            # cell; too slow to time at h=300)
+            r["library_ms"] = None
+            if h == 100 and k in ("K1", "K2"):
+                lib = (lambda: F.avg_pool2d(bg0[None, None], 2 * h + 1, 1, h,
+                                            count_include_pad=False)) \
+                    if k == "K1" else (lambda: F.max_pool2d(
+                        bg0[None, None], 2 * h + 1, 1, h))
+                # the library sums each 201 x 201 window in one sequence
+                # of 40,401 f32 adds, ~1e-5 off: a yardstick, checked at
+                # rtol 1e-4
+                ok, e = compare(kern(), lib()[0, 0], (1e-4, K1_ATOL))
+                check(ok, f"{k} h={h}: the library call computes the same "
+                          f"function (max|d|={e:.3g})")
+                r["library_ms"] = event_ms(lib, reps=2)
+            print(f"  {k} h={h} ({route} route): kernel {r['ms']:.4f} ms "
+                  f"(device only {fmt(r['device_ms'])}), "
+                  f"plain {r['plain_ms']:.4f} ms, library call "
+                  f"{'none' if r['library_ms'] is None else fmt(r['library_ms'])}"
+                  f", bound {b_ms:.4f} ms ({b_by}), "
+                  f"{b_ms / r['ms']:.3f} of the bound", flush=True)
     print(f"  K5 Mean 2000x2000x10 NaN-free in one launch "
           f"{timing['K5']['ms']:.4f} ms, with 10% NaN {k5_nan_ms:.4f} ms; "
           f"10 launches of K1 on contiguous member planes "
@@ -869,13 +1002,14 @@ def main():
     gap = torch.as_tensor(gap, device=dev)
     rat = torch.as_tensor(ratios, device=dev)
 
-    def pipeline(stat):
+    def pipeline(stat, halfwidth=7):
         t0 = time.perf_counter()
         pipe = gt.Pipeline(grid, points, gt.BarnesStructure(10000.0),
-                           halfwidth=7, statistic=stat, max_points=10,
+                           halfwidth=halfwidth, statistic=stat, max_points=10,
                            ratios=ratios, device=dev)
         torch.cuda.synchronize()
-        print(f"  Pipeline(statistic={gt.Statistic(stat).name}): host set-up "
+        print(f"  Pipeline(statistic={gt.Statistic(stat).name}, halfwidth="
+              f"{halfwidth}): host set-up "
               f"{time.perf_counter() - t0:.3f} s (shortlist, tile tables, "
               "static weights)", flush=True)
         return pipe
@@ -891,6 +1025,20 @@ def main():
           f"{n_cycles} cycles)")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           " GB", flush=True)
+    del pipe
+
+    print("[Pipeline 2000x2000, 10k obs, Mean h=100: K1's wide route]",
+          flush=True)
+    pipe = pipeline(mean, 100)
+    for w in wrappers.values():
+        w.launches = w.wide = 0
+    n_cycles = run_cycles(pipe, bgs, obs, gap, rat)
+    wide_launches = stencil.neighbourhood_mean_cuda.wide
+    check(stencil.neighbourhood_mean_cuda.launches == n_cycles
+          and wide_launches == n_cycles,
+          f"h=100: K1 called once per cycle, by the wide route "
+          f"({stencil.neighbourhood_mean_cuda.launches} calls, "
+          f"{wide_launches} wide, {n_cycles} cycles)")
 
     # -- 6. the neighbourhood-statistics path --
     print("[neighbourhood statistics: Pipeline Max h=7, Std, quantile_fast, "
@@ -1015,14 +1163,26 @@ def main():
                "K3": ("neighbourhood_var", f"{PALLAS}:330"),
                "K4": ("neighbourhood_quantile_fast", f"{PALLAS}:465"),
                "K5": ("neighbourhood_members", f"{PALLAS}:643")}
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": wrappers[k].__name__,
         "route": "cuda",
         "source": f"gridpp_tpu_torch/csrc/{sources[k][0]}.cu",
         "replaces": sources[k][1],
         "launches": launches[k],
         "max_abs_err": err[k],
-        **timing[k]} for k in wrappers]}), flush=True)
+        **timing[k]} for k in wrappers]
+    # the wide route on the main path: K1's, in phase 5's h=100 cycles
+    kernels.append({
+        "name": "neighbourhood_mean_cuda (wide route, nbw_launch)",
+        "route": "cuda",
+        "source": "gridpp_tpu_torch/csrc/neighbourhood_wide.cu",
+        "replaces": f"{PALLAS}:301",
+        "launches": wide_launches,
+        "max_abs_err": wide_err,
+        **{key: wide_ms[("K1", 100)][key]
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")}})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

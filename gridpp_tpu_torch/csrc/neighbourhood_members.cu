@@ -10,28 +10,29 @@
 // What bounds it: one f32 read and one f32 write of the whole field (160 MB
 // each at 2000 x 2000 x 10). The field is read as its (Y, X*E) view, where a
 // window step along x is a step of E floats. One block owns kRows x bx grid
-// cells for a chunk of `ec` members (all E where shared memory allows), so
-// the rows of its halo tile are contiguous runs of X*E: they are copied 16
-// bytes at a time where aligned (each tile row is shifted in shared memory
-// by its global address mod 4, so the 16-byte slots line up) and as
-// scalars at the edges. Threads run along the flattened (x, e) index in
+// cells of every member, so the rows of its halo tile are contiguous runs
+// of X*E: they are copied 16 bytes at a time where aligned (each tile row
+// is shifted in shared memory by its global address mod 4, so the 16-byte
+// slots line up) and as scalars at the edges. Threads run along the flattened (x, e) index in
 // the load, in both window passes and in the store, so neighbouring
 // threads touch neighbouring addresses throughout.
 //
 // The tile goes to shared memory by cp.async (16-byte copies, all in
 // flight at once). The vertical pass gives each tile column to one thread,
 // which walks down it and keeps all kRows direct (2hy+1)-term sums in
-// registers (each adds its terms top to bottom, as K1), then writes them
-// over the top kRows rows of its own column. The horizontal pass is a
-// direct (2hx+1)-term sum per output at a stride of ec floats. Where the
-// tile holds no non-finite cell of the domain, the count is the clipped
+// registers (each adds its terms top to bottom), then writes them over
+// the top kRows rows of its own column. The horizontal pass is a direct
+// (2hx+1)-term sum per output at a stride of E floats. Where the tile
+// holds no non-finite cell of the domain, the count is the clipped
 // window's analytic size (as pallas_stencil.py:286-298); elsewhere a
 // second walk down each column, read from device memory again, counts its
-// finite cells. Sums are taken in
-// K1's order, so each member's Mean/Sum/Count equals K1's on that member.
+// finite cells. Each member's Mean/Sum/Count agrees with K1's on that
+// member to K1's bar (K1 associates the same direct sums otherwise).
+// Halfwidths where the tile of every member of one column does not fit a
+// block take the wide route on the (Y, X * E) view (neighbourhood_wide.cu).
 //
 // Plain C interface, loaded with ctypes (gridpp_tpu_torch/ops/stencil.py,
-// which plans bx, ec and the row pitch: member_plan).
+// which plans bx and the row pitch: member_plan).
 
 #include <stdint.h>
 
@@ -49,21 +50,18 @@ constexpr int kBlocksPerSm = 3;
 enum Mode { kSums, kMin, kMax };
 
 struct Block {
-  int x0, y0, e0;    // first grid column, row and member of the block
-  int ecb;           // members of this block
-  int w;             // flat tile width: (bx + 2hx) * ecb
+  int x0, y0;        // first grid column and row of the block
+  int w;             // flat tile width: (bx + 2hx) * E
   long long xe;      // X * E
   long long fc0;     // flat column (x * E + e) of tile column 0
-  bool contig;       // ecb == E: tile rows are contiguous runs of memory
   int base;          // (address of x / 4) mod 4
   int e;             // members of the field
 };
 
 // Shared-memory slot shift of the tile row at grid row y: the row's floats
 // start at this offset so that a slot's index and its global address agree
-// mod 4 (16-byte vector slots); 0 for member chunks (scalar loads).
+// mod 4 (16-byte vector slots).
 __device__ __forceinline__ int row_shift(const Block& b, int y) {
-  if (!b.contig) return 0;
   return static_cast<int>((b.base + static_cast<long long>(y) * b.xe + b.fc0) &
                           3);
 }
@@ -79,57 +77,38 @@ __device__ __forceinline__ void copy16_async(float* dst, const float* src) {
 // Loads the halo tile (rows y0 - hy .. y0 + kRows + hy) into `tile` (row r
 // at tile + r * pitch + row_shift); out-of-domain cells are NaN.
 __device__ void load_tile(const float* __restrict__ x, const Block& b,
-                          int ny, int nx, int e, int hy, int hx, int pitch,
-                          float* tile) {
+                          int ny, int hy, int pitch, float* tile) {
   const int tile_h = kRows + 2 * hy;
-  if (b.contig) {
-    const int quads = (b.w + 6) / 4;  // covers shift + w for any shift
-    for (int i = threadIdx.x; i < tile_h * quads; i += kThreads) {
-      const int r = i / quads;
-      const int q = i - r * quads;
-      const int y = b.y0 - hy + r;
-      const int s = row_shift(b, y);
-      if (4 * q >= s + b.w) continue;
-      const long long fc = b.fc0 + 4 * q - s;  // flat column of slot 4q
-      const long long g = static_cast<long long>(y) * b.xe + fc;
-      const bool yin = y >= 0 && y < ny;
-      float* dst = tile + r * pitch + 4 * q;
-      if (yin && fc >= 0 && fc + 4 <= b.xe) {
-        copy16_async(dst, x + g);
-      } else {
+  const int quads = (b.w + 6) / 4;  // covers shift + w for any shift
+  for (int i = threadIdx.x; i < tile_h * quads; i += kThreads) {
+    const int r = i / quads;
+    const int q = i - r * quads;
+    const int y = b.y0 - hy + r;
+    const int s = row_shift(b, y);
+    if (4 * q >= s + b.w) continue;
+    const long long fc = b.fc0 + 4 * q - s;  // flat column of slot 4q
+    const long long g = static_cast<long long>(y) * b.xe + fc;
+    const bool yin = y >= 0 && y < ny;
+    float* dst = tile + r * pitch + 4 * q;
+    if (yin && fc >= 0 && fc + 4 <= b.xe) {
+      copy16_async(dst, x + g);
+    } else {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          dst[k] = yin && fc + k >= 0 && fc + k < b.xe ? __ldg(x + g + k)
-                                                       : NAN;
-        }
+      for (int k = 0; k < 4; ++k) {
+        dst[k] = yin && fc + k >= 0 && fc + k < b.xe ? __ldg(x + g + k) : NAN;
       }
-    }
-    asm volatile("cp.async.wait_all;\n" ::);
-  } else {
-    for (int i = threadIdx.x; i < tile_h * b.w; i += kThreads) {
-      const int r = i / b.w;
-      const int j = i - r * b.w;
-      const int c = j / b.ecb;
-      const int y = b.y0 - hy + r;
-      const int gx = b.x0 - hx + c;
-      float v = NAN;
-      if (y >= 0 && y < ny && gx >= 0 && gx < nx) {
-        v = __ldg(x + (static_cast<long long>(y) * nx + gx) * e + b.e0 + j -
-                  c * b.ecb);
-      }
-      tile[r * pitch + j] = v;
     }
   }
+  asm volatile("cp.async.wait_all;\n" ::);
 }
 
-// Global element index of tile column j in grid column gx (set to -1
-// outside the domain): flat column j of the block's (Y, X*E) patch.
+// Flat column (x * E + e) of tile column j, and its grid column gx (set to
+// -1 outside the domain).
 __device__ __forceinline__ long long column_index(const Block& b, int nx,
                                                   int hx, int j, int& gx) {
-  const int c = j / b.ecb;
-  gx = b.x0 - hx + c;
+  gx = b.x0 - hx + j / b.e;
   if (gx < 0 || gx >= nx) gx = -1;
-  return static_cast<long long>(b.x0 - hx + c) * b.e + b.e0 + j - c * b.ecb;
+  return b.fc0 + j;
 }
 
 template <Mode kMode>
@@ -145,7 +124,7 @@ __device__ __forceinline__ float identity() {
 }
 
 // Folds a tile column, read(d) being its row d, into its kRows vertical
-// window results, each adding its rows top to bottom as K1 does: the sums
+// window results, each adding its rows top to bottom: the sums
 // (or extrema) into acc, a non-finite cell adding 0 to a sum and reading as
 // the identity for Min/Max; with kCounts, the finite cells into cnt
 // instead. Where
@@ -219,8 +198,7 @@ template <Mode kMode>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 neighbourhood_members_kernel(const float* __restrict__ x,
                              float* __restrict__ out, int ny, int nx, int e,
-                             int hy, int hx, int bx, int ec, int pitch,
-                             int stat) {
+                             int hy, int hx, int bx, int pitch, int stat) {
   extern __shared__ __align__(16) float smem[];
   float* tile = smem;  // (kRows + 2hy) x pitch
   // kRows x pitch vertical counts (Mean/Sum/Count; a count is <= 2hy + 1)
@@ -230,21 +208,18 @@ neighbourhood_members_kernel(const float* __restrict__ x,
   Block b;
   b.x0 = blockIdx.x * bx;
   b.y0 = blockIdx.y * kRows;
-  b.e0 = blockIdx.z * ec;
-  b.ecb = min(ec, e - b.e0);
-  b.w = (bx + 2 * hx) * b.ecb;
+  b.w = (bx + 2 * hx) * e;
   b.xe = static_cast<long long>(nx) * e;
   b.fc0 = static_cast<long long>(b.x0 - hx) * e;
-  b.contig = b.ecb == e;
   b.base = static_cast<int>((reinterpret_cast<uintptr_t>(x) >> 2) & 3);
   b.e = e;
 
-  load_tile(x, b, ny, nx, e, hy, hx, pitch, tile);
+  load_tile(x, b, ny, hy, pitch, tile);
   __syncthreads();
 
   // vertical pass: each thread takes whole tile columns; its sums go over
   // the top kRows rows of the column, which no other thread reads
-  const int step = b.contig ? static_cast<int>(b.xe & 3) : 0;
+  const int step = static_cast<int>(b.xe & 3);
   const int s_top = row_shift(b, b.y0 - hy);
   int cnt[kRows];
   bool bad = false;
@@ -289,22 +264,21 @@ neighbourhood_members_kernel(const float* __restrict__ x,
     __syncthreads();
   }
 
-  // horizontal pass: each thread takes output columns o = local x * ecb +
+  // horizontal pass: each thread takes output columns o = local x * E +
   // member, down all kRows rows
-  const int bxe = min(bx, nx - b.x0) * b.ecb;
+  const int bxe = min(bx, nx - b.x0) * e;
   const int len_x = 2 * hx + 1;
   const int rows = min(kRows, ny - b.y0);
   for (int o = threadIdx.x; o < bxe; o += kThreads) {
-    const int c = o / b.ecb;
-    const int gx = b.x0 + c;
+    const int gx = b.x0 + o / e;
     const int cx = min(gx + hx, nx - 1) - max(gx - hx, 0) + 1;
-    float* ob = out + (static_cast<long long>(b.y0) * nx + gx) * e + b.e0 +
-                o - c * b.ecb;
+    float* ob = out + static_cast<long long>(b.y0) * b.xe +
+                static_cast<long long>(b.x0) * e + o;
     for (int k = 0; k < rows; ++k) {
       const float* row = tile + k * pitch + ((s_top + k * step) & 3) + o;
       float acc = identity<kMode>();
       for (int d = 0; d < len_x; ++d) {
-        acc = combine<kMode>(acc, row[d * b.ecb]);
+        acc = combine<kMode>(acc, row[d * e]);
       }
       float res;
       if (kMode != kSums) {
@@ -314,7 +288,7 @@ neighbourhood_members_kernel(const float* __restrict__ x,
         if (counted) {
           int m = 0;
           const unsigned short* rc = vcnt + k * pitch + o;
-          for (int d = 0; d < len_x; ++d) m += rc[d * b.ecb];
+          for (int d = 0; d < len_x; ++d) m += rc[d * e];
           n = static_cast<float>(m);
         } else {
           const int y = b.y0 + k;
@@ -329,7 +303,7 @@ neighbourhood_members_kernel(const float* __restrict__ x,
           res = NAN;
         }
       }
-      ob[static_cast<long long>(k) * nx * e] = res;
+      ob[static_cast<long long>(k) * b.xe] = res;
     }
   }
 }
@@ -339,20 +313,20 @@ neighbourhood_members_kernel(const float* __restrict__ x,
 extern "C" {
 
 // x, out: device pointers to (ny, nx, e) contiguous f32. bx grid columns
-// and ec members per block, tile row pitch `pitch` floats (a multiple of 4,
-// at least (bx + 2hx) * ec + 3): ops/stencil.py::member_plan. stat is
+// of every member per block, tile row pitch `pitch` floats (a multiple of
+// 4, at least (bx + 2hx) * e + 3): ops/stencil.py::member_plan. stat is
 // Statistic.Mean, Sum, Count, Min or Max. Returns 0, -1 when the plan needs
 // more shared memory than the device gives a block, -2 for another
 // statistic or a plan it cannot take, or a cudaError_t.
 int nbk_launch(const float* x, float* out, int ny, int nx, int e, int hy,
-               int hx, int bx, int ec, int pitch, int stat, int device,
+               int hx, int bx, int pitch, int stat, int device,
                void* stream) {
-  const long long w = static_cast<long long>(bx + 2 * hx) * ec;
-  if (bx < 1 || ec < 1 || pitch % 4 != 0 || pitch < w + 3) {
+  const long long w = static_cast<long long>(bx + 2 * hx) * e;
+  if (bx < 1 || e < 1 || pitch % 4 != 0 || pitch < w + 3) {
     return -2;
   }
   void (*kernel)(const float*, float*, int, int, int, int, int, int, int,
-                 int, int);
+                 int);
   size_t smem =
       (kRows + 2 * static_cast<size_t>(hy)) * pitch * sizeof(float);
   if (stat == kStatMin) {
@@ -367,10 +341,9 @@ int nbk_launch(const float* x, float* out, int ny, int nx, int e, int hy,
   }
   const int err = prepare_launch(kernel, smem, device);
   if (err != 0) return err;
-  const dim3 grid((nx + bx - 1) / bx, (ny + kRows - 1) / kRows,
-                  (e + ec - 1) / ec);
+  const dim3 grid((nx + bx - 1) / bx, (ny + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, out, ny, nx, e, hy, hx, bx, ec, pitch, stat);
+      x, out, ny, nx, e, hy, hx, bx, pitch, stat);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,7 +20,9 @@
 // What bounds it: one f32 read and one f32 write of the field, where the
 // two-pass form reads it twice and writes x * x besides. A block loads its
 // halo tile into shared memory (stencil_tile.cuh), then runs the vertical
-// and horizontal passes for s, s2 and c together.
+// and horizontal passes for s, s2 and c together. Halfwidths whose tile
+// does not fit a block take the wide route (neighbourhood_wide.cu, with the
+// same rounded intrinsics); ops/stencil.py::stencil_plan decides.
 //
 // Plain C interface, loaded with ctypes (gridpp_tpu_torch/ops/stencil.py).
 

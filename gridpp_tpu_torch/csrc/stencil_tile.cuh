@@ -1,16 +1,18 @@
 // Shared pieces of the neighbourhood stencil kernels (sm_90a).
 //
-// Every stencil kernel of the package works the same way: one block of
-// kThreads threads owns a kBY x kBX patch of output cells, loads the
-// (kBY + 2hy) x (kBX + 2hx) halo tile around it into shared memory, and
-// then runs a vertical and a horizontal window pass over the tile. Cells
-// outside the domain are read as NaN, which every kernel treats as missing:
-// that gives the window clipped at the domain edge without any index
-// arithmetic in the passes.
+// K3 (neighbourhood_var.cu) and K4 (neighbourhood_quantile_fast.cu) work
+// the same way: one block of kThreads threads owns a kBY x kBX patch of
+// output cells, loads the (kBY + 2hy) x (kBX + 2hx) halo tile around it
+// into shared memory, and then runs a vertical and a horizontal window pass
+// over the tile. Cells outside the domain are read as NaN, which every
+// kernel treats as missing: that gives the window clipped at the domain
+// edge without any index arithmetic in the passes. A leading axis of planes
+// (a contiguous (B, Y, X) batch) rides on blockIdx.z.
 //
-// A leading axis of planes (a contiguous (B, Y, X) batch) rides on
-// blockIdx.z. The member-minor (Y, X, E) stencil K5 has its own tiling
-// (neighbourhood_members.cu) and shares only prepare_launch.
+// K1 and K2 walk strips instead (stencil_strip.cuh), the member-minor
+// (Y, X, E) stencil K5 has its own tiling (neighbourhood_members.cu), and
+// the wide route (neighbourhood_wide.cu) reads device memory directly; they
+// share the statistic codes and prepare_launch.
 
 #pragma once
 

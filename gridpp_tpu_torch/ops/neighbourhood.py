@@ -5,8 +5,10 @@ non-finite values are missing, windows are clipped at the domain edge, and a
 halfwidth beyond the grid is clipped per axis.
 
 - Mean/Sum/Count, Min/Max and Std/Variance (`neighbourhood`, h > 0): a CUDA
-  tensor goes through kernel K1, K2 or K3 (ops/stencil.py), a CPU tensor
-  through the kernel's plain version. `_xla_basic` is the plain dispatch.
+  tensor goes through kernel K1, K2 or K3 (ops/stencil.py) at any
+  halfwidth (its one-block kernel, or past that its wide route, as
+  stencil.stencil_plan picks), a CPU tensor through the kernel's plain
+  version. `_xla_basic` is the plain dispatch.
 - Every other statistic (Median, Quantile, ...) takes the brute-force path:
   the (2h+1)^2 shifted copies of the field and an exact reduction, in plain
   PyTorch on whatever device the tensor lies (XLA in the reference, so not a

@@ -14,15 +14,24 @@ in parallel, as chip_smoke.py runs them) and bound with ctypes:
      replaces ::_qf_kernel
   K5 neighbourhood_members_cuda        csrc/neighbourhood_members.cu
      replaces ::_member_mean_kernel and ::_member_minmax_kernel
+  wide route of K1-K5                 csrc/neighbourhood_wide.cu
+
+Each kernel has two routes, and `stencil_plan` (Python, so that the CPU
+tests reach it) picks one from the shapes and halfwidths: "fused", the
+kernel's own one-launch kernel, where its shared-memory tile fits a block
+and the halfwidths are at most the measured crossover FUSED_MAX_H (every
+kernel at h=7), else "wide", two launches of csrc/neighbourhood_wide.cu
+through a scratch buffer that the wrapper allocates, which take any
+halfwidth. The fused launches take a plan of
+their own: K1/K2 `strip_plan`, K4 `qf_plan`, K5 `member_plan`.
 
 A `*_cuda` wrapper takes only a CUDA tensor and launches its kernel, or
-raises; it counts its launches in `<wrapper>.launches`. Beside each sits its
-plain PyTorch version (`*_plain`; K4's is
+raises; it counts its calls in `<wrapper>.launches` (one a call, whatever
+the route) and the calls that took the wide route in `<wrapper>.wide`.
+Beside each sits its plain PyTorch version (`*_plain`; K4's is
 ops/neighbourhood.py::_quantile_fast_xla): the CPU path, and the reference
 the kernel is held to on the card. ops/neighbourhood.py picks one by where
-the tensor lies; `neighbourhood_members` does so here. K4 and K5 take a
-launch plan (`qf_plan`, `member_plan`) worked out here, in Python, so that
-the CPU tests reach it.
+the tensor lies; `neighbourhood_members` does so here.
 
 The stencils take x of shape (Y, X) or (B, Y, X), f32, and halfwidths
 already clipped to the grid (hy <= Y - 1, hx <= X - 1); a leading axis is a
@@ -31,6 +40,7 @@ batch of independent planes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 from typing import NamedTuple
@@ -48,7 +58,8 @@ __all__ = [
     "neighbourhood_minmax_cuda", "neighbourhood_minmax_plain",
     "neighbourhood_var_cuda", "neighbourhood_var_plain",
     "neighbourhood_quantile_fast_cuda", "qf_lane_bits", "qf_words",
-    "qf_plan",
+    "qf_plan", "strip_plan", "strip_smem", "strip_width", "stencil_plan",
+    "wide_scratch",
     "member_plan", "neighbourhood_members", "neighbourhood_members_cuda",
     "neighbourhood_members_plain",
 ]
@@ -63,24 +74,41 @@ KERNELS = {"neighbourhood_mean": "nbm_launch",
            "neighbourhood_minmax": "nbx_launch",
            "neighbourhood_var": "nbv_launch",
            "neighbourhood_quantile_fast": "nbq_launch",
-           "neighbourhood_members": "nbk_launch"}
+           "neighbourhood_members": "nbk_launch",
+           "neighbourhood_wide": "nbw_launch"}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-_HEADER = os.path.join(_CSRC, "stencil_tile.cuh")
 _c_p, _c_i = ctypes.c_void_p, ctypes.c_int
-# nbm_launch, nbx_launch and nbv_launch share one signature
-_STENCIL_ARGS = [_c_p, _c_p] + [_c_i] * 6 + [_c_i, _c_p]
-_ARGTYPES = {"nbm_launch": _STENCIL_ARGS, "nbx_launch": _STENCIL_ARGS,
-             "nbv_launch": _STENCIL_ARGS,
+# nbm_launch and nbx_launch share one signature (K1/K2: with the strip
+# width and run length), nbv_launch takes the same without them
+_STRIP_ARGS = [_c_p, _c_p] + [_c_i] * 8 + [_c_i, _c_p]
+_ARGTYPES = {"nbm_launch": _STRIP_ARGS, "nbx_launch": _STRIP_ARGS,
+             "nbv_launch": [_c_p, _c_p] + [_c_i] * 6 + [_c_i, _c_p],
              "nbq_launch": [_c_p, _c_p, _c_i, _c_p, _c_p] + [_c_i] * 8
              + [_c_i, _c_p],
-             "nbk_launch": [_c_p, _c_p] + [_c_i] * 9 + [_c_i, _c_p]}
+             "nbk_launch": [_c_p, _c_p] + [_c_i] * 8 + [_c_i, _c_p],
+             "nbw_launch": [_c_p] * 6 + [_c_i, _c_p] + [_c_i] * 7
+             + [_c_i, _c_p]}
 _libs: dict = {}
 
 # the dynamic shared memory one block may opt in to on an H100 (232,448
 # bytes); the launch functions check the device's own limit again
 SMEM_LIMIT = 232448
+# an H100 SXM's shared memory per SM (228 KB; each block also holds 1 KB
+# of the system's) and its SMs (the wrapper reads the device's own count)
+SMEM_PER_SM = 233472
+H100_SMS = 132
+# K1/K2's strip walk (csrc/stencil_strip.cuh): output rows of a chunk, the
+# tile row that one round of a block's threads takes, the largest hx of the
+# register horizontal pass, the outputs of a horizontal task, the blocks an
+# SM keeps in flight (its __launch_bounds__), and the narrowest strip
+STRIP_CHUNK, STRIP_W, STRIP_HCAP, STRIP_OUT = 16, 128, 8, 8
+STRIP_BLOCKS_PER_SM, STRIP_MIN_BW = 3, 64
+# The largest halfwidth (hy and hx) at which a one-block kernel beats the
+# wide route on an H100 (tools/torch_route_sweep.py at 2000², K5 with 10
+# members; K4's one-block kernel is the faster wherever it fits).
+FUSED_MAX_H = {"K1": 64, "K2": 60, "K3": 36, "K5": 10}
 # K4's output patch (kBY x kBX, csrc/stencil_tile.cuh)
 QF_BY, QF_BX = 32, 64
 # K5's output rows per block (kRows, csrc/neighbourhood_members.cu) and
@@ -107,9 +135,11 @@ def build_kernel(name: str) -> str:
     if name not in KERNELS:
         raise ValueError(f"no kernel source {name!r}")
     src = os.path.join(_CSRC, f"{name}.cu")
+    headers = sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                     if f.endswith(".cuh"))
     nvcc = _nvcc()
     return build_shared(
-        name, [src, _HEADER],
+        name, [src] + headers,
         lambda out: [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                      "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
                      "-Xcompiler", "-fPIC", "-o", out, src])
@@ -133,6 +163,9 @@ def _launch(name: str, x: torch.Tensor, *args) -> None:
     if err == -1:
         raise ValueError(f"{name}: the halfwidths need more shared memory "
                          "than the device gives one block")
+    if err == -2:
+        raise RuntimeError(f"{name}: the launch refused its arguments or "
+                           "plan")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: error {err}")
 
@@ -159,18 +192,188 @@ def _check_cuda(x, fn):
         raise ValueError(f"{fn} needs a contiguous tensor")
 
 
-def _plane_stencil(name, wrapper, x, hy, hx, stat):
-    """Launch K1/K2/K3 on the contiguous planes of x; returns a new tensor
-    of x's shape."""
+_sms: dict = {}
+
+
+def _device_sms(device) -> int:
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device.index]
+
+
+def _ceil4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def strip_width(hx: int) -> int:
+    """K1/K2's strip of output columns: the widest multiple of STRIP_OUT
+    whose tile row (bw + 2hx) fits STRIP_W floats, so each pass takes one
+    round of the block's threads (112 at hx=7); at least STRIP_MIN_BW."""
+    return max(STRIP_MIN_BW, (STRIP_W - 2 * hx) // STRIP_OUT * STRIP_OUT)
+
+
+def strip_smem(bw: int, hy: int, hx: int, counts: bool) -> int:
+    """Shared memory of one K1/K2 block (csrc/stencil_strip.cuh,
+    strip_smem): a ring of 2 STRIP_CHUNK + 2hy input rows, each bw + 2hx
+    floats plus room for its 16-byte shift, and one (K2) or two (K1:
+    results and counts) planes of STRIP_CHUNK rows of vertical results,
+    each row bw + 2 max(hx, STRIP_HCAP) floats, rounded up to 4 within the
+    cap and to an odd count above it (v_pitch)."""
+    pitch = _ceil4(bw + 2 * hx + 3)
+    vp = (bw + 2 * hx) | 1 if hx > STRIP_HCAP else _ceil4(bw + 2 * STRIP_HCAP)
+    return 4 * ((2 * STRIP_CHUNK + 2 * hy) * pitch
+                + (2 if counts else 1) * STRIP_CHUNK * vp)
+
+
+class StripPlan(NamedTuple):
+    """K1/K2's launch plan: a block walks `rows` output rows (a multiple
+    of STRIP_CHUNK) of a `bw`-column strip; `blocks` blocks of `smem`
+    bytes."""
+    bw: int
+    rows: int
+    blocks: int
+    smem: int
+
+
+def _strip_fit(planes, ny, nx, hy, hx, counts, sms):
+    bw = strip_width(hx)
+    smem = strip_smem(bw, hy, hx, counts)
+    if smem > SMEM_LIMIT:
+        return None
+    per_sm = max(1, min(STRIP_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    strips = -(-nx // bw)
+    runs = max(1, sms * per_sm // (strips * planes))
+    rows = -(-(-(-ny // runs)) // STRIP_CHUNK) * STRIP_CHUNK
+    return StripPlan(bw, rows, strips * -(-ny // rows) * planes, smem)
+
+
+def strip_plan(shape, hy: int, hx: int, counts: bool,
+               sms: int = H100_SMS) -> StripPlan:
+    """K1's (counts) or K2's plan for a (Y, X) or (B, Y, X) field: the
+    strip width from hx (strip_width), and the rows of a run set so that
+    the strips x runs x planes blocks make about one wave of `sms` SMs at
+    the blocks an SM holds. Raises a "shared memory" ValueError where the
+    ring does not fit a block."""
+    ny, nx = shape[-2:]
+    planes = shape[0] if len(shape) == 3 else 1
+    plan = _strip_fit(planes, ny, nx, hy, hx, counts, sms)
+    if plan is None:
+        raise ValueError(f"strip_plan: halfwidths ({hy}, {hx}) need more "
+                         "shared memory than the device gives one block")
+    return plan
+
+
+def _var_smem(hy: int, hx: int) -> int:
+    """K3's shared memory (csrc/neighbourhood_var.cu): its halo tile and
+    three planes of vertical sums."""
+    tw = QF_BX + 2 * hx
+    return 4 * ((QF_BY + 2 * hy) * tw + 3 * QF_BY * tw)
+
+
+class StencilPlan(NamedTuple):
+    """A stencil call's route, "fused" (the kernel's one launch) or "wide"
+    (csrc/neighbourhood_wide.cu), with the fused launch's own plan
+    (StripPlan for K1/K2, K3's shared-memory bytes, QfPlan, MemberPlan; None
+    on the wide route) and the wide route's scratch: (dtype, elements) of
+    each buffer (empty on the fused route)."""
+    route: str
+    fused: object
+    scratch: tuple
+
+
+def wide_scratch(kernel: str, shape, stat=None, t: int = 0) -> tuple:
+    """The wide route's scratch buffers, (dtype, elements) each, in the
+    order nbw_launch takes them: f32 sums and int32 counts (K1, K5 sums);
+    f32 sums and sums of squares and int32 counts (K3); f32 extrema (K2,
+    K5 Min/Max); t + 1 int32 lane planes (K4)."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    f32, i32 = torch.float32, torch.int32
+    if kernel == "K4":
+        return ((i32, (t + 1) * n),)
+    if kernel == "K3":
+        return ((f32, n), (f32, n), (i32, n))
+    if int(stat) in MINMAX_STATS:
+        return ((f32, n),)
+    return ((f32, n), (i32, n))
+
+
+def stencil_plan(kernel: str, shape, hy: int, hx: int, stat=None,
+                 t: int = 0, sms: int = H100_SMS) -> StencilPlan:
+    """The route of a stencil call on the card, from its shapes alone.
+
+    kernel: "K1" (Mean/Sum/Count), "K2" (Min/Max) or "K3" (Std/Variance)
+    on a (Y, X) or (B, Y, X) field, "K4" on (Y, X) with t thresholds, "K5"
+    on (Y, X, E) with `stat`; (hy, hx) clipped to the grid. The one-launch
+    kernel (its own plan) where its tile fits one block and the
+    halfwidths are at most FUSED_MAX_H; else the wide route, which takes
+    any halfwidth. Plans are
+    cached: a serving loop asks for the same one every cycle."""
+    return _stencil_plan(kernel, tuple(int(d) for d in shape), int(hy),
+                         int(hx), None if stat is None else int(stat),
+                         int(t), int(sms))
+
+
+@functools.lru_cache(maxsize=256)
+def _stencil_plan(kernel, shape, hy, hx, stat, t, sms):
+    if kernel in ("K1", "K2"):
+        fused = _strip_fit(shape[0] if len(shape) == 3 else 1,
+                           shape[-2], shape[-1], hy, hx, kernel == "K1", sms)
+    elif kernel == "K3":
+        smem = _var_smem(hy, hx)
+        fused = smem if smem <= SMEM_LIMIT else None
+    elif kernel == "K4":
+        fused = _qf_fit(hy, hx, t)
+    elif kernel == "K5":
+        fused = _member_fit(shape[1], shape[2], hy, hx, stat)
+    else:
+        raise ValueError(f"no stencil kernel {kernel!r}")
+    if fused is not None and max(hy, hx) <= FUSED_MAX_H.get(kernel,
+                                                            max(hy, hx)):
+        return StencilPlan("fused", fused, ())
+    return StencilPlan("wide", None, wide_scratch(kernel, shape, stat, t))
+
+
+def _launch_wide(x, out, plan, planes, ny, nx, e, hy, hx, stat,
+                 thr=None, q=None):
+    """Both passes of csrc/neighbourhood_wide.cu, scratch from
+    plan.scratch."""
+    bufs = [torch.empty(n, dtype=dt, device=x.device)
+            for dt, n in plan.scratch]
+    ptrs = [b.data_ptr() for b in bufs] + [None] * (3 - len(bufs))
+    _launch("neighbourhood_wide", x, x.data_ptr(), out.data_ptr(), *ptrs,
+            None if thr is None else thr.data_ptr(),
+            0 if thr is None else thr.numel(),
+            None if q is None else q.data_ptr(), planes, ny, nx, e, hy, hx,
+            stat)
+
+
+def _plane_stencil(kernel, wrapper, x, hy, hx, stat):
+    """Launch K1/K2/K3 on the contiguous planes of x, by the route
+    stencil_plan picks; returns a new tensor of x's shape."""
     _check_cuda(x, wrapper.__name__)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     b = x.shape[0] if x.dim() == 3 else 1
     ny, nx = x.shape[-2:]
-    _launch(name, x, x.data_ptr(), out.data_ptr(), b, ny, nx, hy, hx, stat)
+    plan = stencil_plan(kernel, x.shape, hy, hx, stat,
+                        sms=_device_sms(x.device))
+    if plan.route == "wide":
+        _launch_wide(x, out, plan, b, ny, nx, 1, hy, hx, stat)
+        wrapper.wide += 1
+    else:
+        strip = () if kernel == "K3" else (plan.fused.bw, plan.fused.rows)
+        _launch(_PLANE_SOURCES[kernel], x, x.data_ptr(), out.data_ptr(), b,
+                ny, nx, hy, hx, *strip, stat)
     wrapper.launches += 1
     return out
+
+
+_PLANE_SOURCES = {"K1": "neighbourhood_mean", "K2": "neighbourhood_minmax",
+                  "K3": "neighbourhood_var"}
 
 
 def single_cell(x: torch.Tensor, stat: int) -> torch.Tensor:
@@ -202,11 +405,11 @@ def neighbourhood_mean_cuda(x: torch.Tensor, hy: int, hx: int,
     """Launch K1 on a CUDA tensor; returns a new tensor of x's shape."""
     stat = int(stat)
     _check_args(x, hy, hx, stat, MEAN_STATS, "Mean, Sum or Count")
-    return _plane_stencil("neighbourhood_mean", neighbourhood_mean_cuda, x,
-                          hy, hx, stat)
+    return _plane_stencil("K1", neighbourhood_mean_cuda, x, hy, hx, stat)
 
 
 neighbourhood_mean_cuda.launches = 0
+neighbourhood_mean_cuda.wide = 0
 
 
 def neighbourhood_mean_plain(x: torch.Tensor, hy: int, hx: int,
@@ -230,11 +433,11 @@ def neighbourhood_minmax_cuda(x: torch.Tensor, hy: int, hx: int,
     """Launch K2 on a CUDA tensor; returns a new tensor of x's shape."""
     stat = int(stat)
     _check_args(x, hy, hx, stat, MINMAX_STATS, "Min or Max")
-    return _plane_stencil("neighbourhood_minmax", neighbourhood_minmax_cuda,
-                          x, hy, hx, stat)
+    return _plane_stencil("K2", neighbourhood_minmax_cuda, x, hy, hx, stat)
 
 
 neighbourhood_minmax_cuda.launches = 0
+neighbourhood_minmax_cuda.wide = 0
 
 
 def neighbourhood_minmax_plain(x: torch.Tensor, hy: int, hx: int,
@@ -258,11 +461,11 @@ def neighbourhood_var_cuda(x: torch.Tensor, hy: int, hx: int,
     """Launch K3 on a CUDA tensor; returns a new tensor of x's shape."""
     stat = int(stat)
     _check_args(x, hy, hx, stat, VAR_STATS, "Std or Variance")
-    return _plane_stencil("neighbourhood_var", neighbourhood_var_cuda, x, hy,
-                          hx, stat)
+    return _plane_stencil("K3", neighbourhood_var_cuda, x, hy, hx, stat)
 
 
 neighbourhood_var_cuda.launches = 0
+neighbourhood_var_cuda.wide = 0
 
 
 def neighbourhood_var_plain(x: torch.Tensor, hy: int, hx: int,
@@ -315,7 +518,17 @@ def qf_plan(hy: int, hx: int, t: int) -> QfPlan:
     the largest group that fits, and an odd pitch (free of bank conflicts)
     where it fits. Raises a "shared memory" ValueError where not even one
     word a group fits; that takes every halfwidth a per-threshold count
-    with one plane of vertical counts takes."""
+    with one plane of vertical counts takes (stencil_plan sends the rest to
+    the wide route)."""
+    plan = _qf_fit(hy, hx, t)
+    if plan is None:
+        raise ValueError(f"neighbourhood_quantile_fast: halfwidths ({hy}, "
+                         f"{hx}) need more shared memory than the device "
+                         "gives one block")
+    return plan
+
+
+def _qf_fit(hy: int, hx: int, t: int):
     bits = qf_lane_bits((2 * hy + 1) * (2 * hx + 1))
     words = qf_words(t, bits)
     tw = QF_BX + 2 * hx
@@ -327,9 +540,7 @@ def qf_plan(hy: int, hx: int, t: int) -> QfPlan:
             smem = 4 * (tile + group * QF_BY * pitch)
             if smem <= SMEM_LIMIT:
                 return QfPlan(bits, words, group, pitch, smem)
-    raise ValueError(f"neighbourhood_quantile_fast: halfwidths ({hy}, {hx}) "
-                     "need more shared memory than the device gives one "
-                     "block")
+    return None
 
 
 def neighbourhood_quantile_fast_cuda(x: torch.Tensor, quantile, hy: int,
@@ -353,15 +564,22 @@ def neighbourhood_quantile_fast_cuda(x: torch.Tensor, quantile, hy: int,
     if x.numel() == 0:
         return out
     ny, nx = x.shape
-    plan = qf_plan(hy, hx, thr.numel())
-    _launch("neighbourhood_quantile_fast", x, x.data_ptr(), thr.data_ptr(),
-            thr.numel(), q.data_ptr(), out.data_ptr(), ny, nx, hy, hx,
-            plan.bits, plan.words, plan.group, plan.pitch)
+    plan = stencil_plan("K4", x.shape, hy, hx, t=thr.numel())
+    if plan.route == "wide":
+        _launch_wide(x, out, plan, 1, ny, nx, 1, hy, hx,
+                     int(Statistic.Quantile), thr, q)
+        neighbourhood_quantile_fast_cuda.wide += 1
+    else:
+        qp = plan.fused
+        _launch("neighbourhood_quantile_fast", x, x.data_ptr(),
+                thr.data_ptr(), thr.numel(), q.data_ptr(), out.data_ptr(),
+                ny, nx, hy, hx, qp.bits, qp.words, qp.group, qp.pitch)
     neighbourhood_quantile_fast_cuda.launches += 1
     return out
 
 
 neighbourhood_quantile_fast_cuda.launches = 0
+neighbourhood_quantile_fast_cuda.wide = 0
 
 
 # -- K5: every member of a (Y, X, E) field at once ----------------------------
@@ -394,42 +612,48 @@ def neighbourhood_members(x: torch.Tensor, halfwidth: int,
 
 
 class MemberPlan(NamedTuple):
-    """K5's launch plan: a block owns K5_ROWS x `bx` grid cells of `chunk`
-    members; its halo tile rows are `pitch` floats; `smem` bytes."""
+    """K5's launch plan: a block owns K5_ROWS x `bx` grid cells of every
+    member; its halo tile rows are `pitch` floats; `smem` bytes."""
     bx: int
-    chunk: int
     pitch: int
     smem: int
 
 
 def member_plan(nx: int, e: int, hy: int, hx: int, stat: int) -> MemberPlan:
     """K5's plan for a (Y, nx, e) field and clipped halfwidths. A block
-    takes every member where shared memory allows (its tile rows are then
-    contiguous runs of the (Y, X * E) view), else the largest chunk that
-    fits, and about K5_WIDTH floats of tile row: bx = K5_WIDTH // chunk -
-    2hx grid columns, at least 1, and fewer where the tile would not fit.
-    Shared memory: the (K5_ROWS + 2hy) x pitch f32 tile, plus K5_ROWS x
-    pitch 16-bit vertical counts for Mean/Sum/Count; the pitch is
-    (bx + 2hx) * chunk + 3 rounded up to 4 floats (room for each row's
-    16-byte alignment shift). Raises a "shared memory" ValueError where not
-    even one member of one grid column fits."""
+    takes every member (its tile rows are then contiguous runs of the
+    (Y, X * E) view) and about K5_WIDTH floats of tile row: bx = K5_WIDTH
+    // e - 2hx grid columns, at least 1, and fewer where the tile would not
+    fit. Shared memory: the (K5_ROWS + 2hy) x pitch f32 tile, plus K5_ROWS
+    x pitch 16-bit vertical counts for Mean/Sum/Count; the pitch is
+    (bx + 2hx) * e + 3 rounded up to 4 floats (room for each row's 16-byte
+    alignment shift). Raises a "shared memory" ValueError where not even
+    one grid column of every member fits (stencil_plan sends that to the
+    wide route)."""
+    plan = _member_fit(nx, e, hy, hx, stat)
+    if plan is None:
+        raise ValueError(f"neighbourhood_members: halfwidths ({hy}, {hx}) "
+                         "need more shared memory than the device gives one "
+                         "block")
+    return plan
+
+
+def _member_fit(nx: int, e: int, hy: int, hx: int, stat: int):
     per_pitch = 4 * (K5_ROWS + 2 * hy) + (2 * K5_ROWS
                                           if int(stat) in MEAN_STATS else 0)
     widest = SMEM_LIMIT // per_pitch // 4 * 4 - 3  # tile row floats
-    for chunk in range(e, 0, -1):
-        bx = min(max(1, K5_WIDTH // chunk - 2 * hx), nx,
-                 widest // chunk - 2 * hx)
-        if bx >= 1:
-            pitch = -(-((bx + 2 * hx) * chunk + 3) // 4) * 4
-            return MemberPlan(bx, chunk, pitch, per_pitch * pitch)
-    raise ValueError(f"neighbourhood_members: halfwidths ({hy}, {hx}) need "
-                     "more shared memory than the device gives one block")
+    bx = min(max(1, K5_WIDTH // e - 2 * hx), nx, widest // e - 2 * hx)
+    if bx < 1:
+        return None
+    pitch = -(-((bx + 2 * hx) * e + 3) // 4) * 4
+    return MemberPlan(bx, pitch, per_pitch * pitch)
 
 
 def neighbourhood_members_cuda(x: torch.Tensor, hy: int, hx: int,
                                stat: int) -> torch.Tensor:
     """Launch K5 on a contiguous (Y, X, E) CUDA tensor (member_plan's
-    tiling); returns (Y, X, E)."""
+    tiling, or the wide route on the (Y, X * E) view, as stencil_plan
+    picks); returns (Y, X, E)."""
     stat = int(stat)
     if x.dim() != 3:
         raise ValueError(f"expected (Y, X, E), got {tuple(x.shape)}")
@@ -440,14 +664,20 @@ def neighbourhood_members_cuda(x: torch.Tensor, hy: int, hx: int,
     if x.numel() == 0:
         return out
     ny, nx, e = x.shape
-    plan = member_plan(nx, e, hy, hx, stat)
-    _launch("neighbourhood_members", x, x.data_ptr(), out.data_ptr(), ny, nx,
-            e, hy, hx, plan.bx, plan.chunk, plan.pitch, stat)
+    plan = stencil_plan("K5", x.shape, hy, hx, stat)
+    if plan.route == "wide":
+        _launch_wide(x, out, plan, 1, ny, nx, e, hy, hx, stat)
+        neighbourhood_members_cuda.wide += 1
+    else:
+        mp = plan.fused
+        _launch("neighbourhood_members", x, x.data_ptr(), out.data_ptr(), ny,
+                nx, e, hy, hx, mp.bx, mp.pitch, stat)
     neighbourhood_members_cuda.launches += 1
     return out
 
 
 neighbourhood_members_cuda.launches = 0
+neighbourhood_members_cuda.wide = 0
 
 
 def neighbourhood_members_plain(x: torch.Tensor, hy: int, hx: int,

@@ -60,6 +60,18 @@ def _field(shape, seed=0, nan_frac=0.1):
     return x
 
 
+def _field_280(shape, seed=0, nan_frac=0.1):
+    """The benchmark's background, normal(280, 5), with a share missing.
+    Past h=80 a window sums thousands of cells: on a zero-mean field the
+    sum cancels far below the f32 rounding of its partial sums, so the wide
+    cases use this field (and its anomaly for Std/Variance, whose E[x^2] -
+    E[x]^2 of a 280 K field cancels most of f32's digits)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(280, 5, shape).astype(np.float32)
+    x[rng.random(shape) < nan_frac] = np.nan
+    return x
+
+
 def _assert_matches(got, want, tol):
     got, want = got.cpu(), want.cpu()
     assert torch.equal(torch.isnan(got), torch.isnan(want))
@@ -87,7 +99,11 @@ def test_kernel_matches_plain(dev, stat, shape, h):
 
 
 def test_kernel_rejects_what_it_cannot_take(dev):
+    """A strided or f64 tensor is refused; a halfwidth past every one-block
+    tile (h=300 on 600 x 700) now answers, through the wide route, within
+    the kernel's bar of its plain version."""
     x = torch.zeros((64, 64), device=dev)
+    big = torch.as_tensor(_field_280((600, 700), seed=30), device=dev)
     for fn, stat in ((stencil.neighbourhood_mean_cuda, 0),
                      (stencil.neighbourhood_minmax_cuda, int(gt.Max)),
                      (stencil.neighbourhood_var_cuda, int(gt.Std))):
@@ -95,9 +111,12 @@ def test_kernel_rejects_what_it_cannot_take(dev):
             fn(x.t()[:, :32], 2, 2, stat)
         with pytest.raises(TypeError):
             fn(x.double(), 2, 2, stat)
-        big = torch.zeros((4001, 4001), device=dev)
-        with pytest.raises(ValueError, match="shared memory"):
-            fn(big, 2000, 2000, stat)
+        xb = big - 280.0 if stat == int(gt.Std) else big
+        wide = fn.wide
+        got = fn(xb, 300, 300, stat)
+        assert fn.wide == wide + 1
+        _assert_matches(got, tops._xla_basic(xb, 300, stat),
+                        KERNEL_OF[stat][1])
 
 
 @pytest.mark.parametrize("q", [0.0, 0.25, 0.5, 0.9, 1.0])
@@ -127,8 +146,8 @@ def test_quantile_fast_kernel_packed_lanes(dev, shape, h, t):
     225 cells, h=8: 289), with thresholds that fill, straddle and overflow
     its packed words (one pass or streamed groups), unsorted at T=12, and
     at the largest halfwidth a per-threshold K4 takes (h=88; there the
-    plain version runs on the CPU, since K1, which it calls on the card,
-    needs more shared memory than a block has)."""
+    plain version calls K1 on the card, which takes h=88 by its wide
+    route)."""
     x = _field(shape, seed=h + t)
     thr = np.quantile(x[np.isfinite(x)], np.linspace(0, 1, t)).astype(
         np.float32)
@@ -136,11 +155,124 @@ def test_quantile_fast_kernel_packed_lanes(dev, shape, h, t):
         thr = np.random.default_rng(t).permutation(thr)
     xd, thrd = torch.as_tensor(x, device=dev), torch.as_tensor(thr,
                                                                device=dev)
-    on = dev if h < 88 else torch.device("cpu")
     for q in (0.1, 0.5, 1.0):
         got = tops.neighbourhood_quantile_fast(xd, q, h, thrd)
-        want = tops._quantile_fast_xla(xd.to(on), q, h, thrd.to(on))
+        want = tops._quantile_fast_xla(xd, q, h, thrd)
         _assert_matches(got, want, None)
+
+
+# statistic -> the field of the wide cases (anomaly for Std/Variance)
+WIDE_SHIFT = {stat: 280.0 if stat in stencil.VAR_STATS else 0.0
+              for stat in KERNEL_OF}
+
+
+@pytest.mark.parametrize("stat", list(KERNEL_OF))
+@pytest.mark.parametrize("shape,h", [((700, 900), 81), ((700, 900), 100),
+                                     ((700, 900), 300), ((2, 400, 650), 150),
+                                     ((5, 2100), 200)])
+def test_wide_route_matches_plain(dev, stat, shape, h):
+    """ops.neighbourhood at wide halfwidths: one call, by the route
+    stencil_plan picks (the wide route), within the kernel's bar of the
+    plain version on the card."""
+    x = torch.as_tensor(_field_280(shape, seed=h), device=dev) \
+        - WIDE_SHIFT[stat]
+    wrapper, tol = KERNEL_OF[stat]
+    hy, hx = min(h, shape[-2] - 1), min(h, shape[-1] - 1)
+    route = stencil.stencil_plan(
+        "K1" if stat in stencil.MEAN_STATS else
+        "K2" if stat in stencil.MINMAX_STATS else "K3", shape, hy, hx,
+        stat).route
+    before, wide = wrapper.launches, wrapper.wide
+    got = tops.neighbourhood(x, h, stat)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert wrapper.wide == wide + (route == "wide")
+    _assert_matches(got, tops._xla_basic(x, h, stat), tol)
+
+
+@pytest.mark.parametrize("stat", list(KERNEL_OF)[:5])
+@pytest.mark.parametrize("shape,h", [((1, 500), 3), ((500, 1), 3),
+                                     ((1, 1), 2), ((97, 301), 7),
+                                     ((33, 129), 9), ((3, 130, 257), 7),
+                                     ((250, 385), 5), ((16, 128), 7),
+                                     ((70, 2000), 1), ((200, 130), 32),
+                                     ((200, 130), 60)])
+def test_strip_kernels_at_edges(dev, stat, shape, h):
+    """The new K1/K2 at ragged strip (X not a multiple of 128 or 4) and row
+    (Y not a multiple of the run or chunk) edges, 1-row and 1-column
+    fields, batched planes, hx above the register cap (9, 32), and the
+    largest halfwidth at which both stay fused (60), on the 280 K field
+    with 10% NaN."""
+    x = torch.as_tensor(_field_280(shape, seed=len(shape) + h), device=dev)
+    wrapper, tol = KERNEL_OF[stat]
+    wide = wrapper.wide
+    got = tops.neighbourhood(x, h, stat)
+    assert wrapper.wide == wide
+    _assert_matches(got, tops._xla_basic(x, h, stat), tol)
+
+
+@pytest.mark.parametrize("stat", [int(gt.Mean), int(gt.Sum),
+                                  int(gt.Count)])
+def test_strip_counts_nan_next_to_nan_free(dev, stat):
+    """A NaN-free 280 K field with NaN in a few rows and columns: chunks
+    that see no NaN take the analytic count, their neighbours count, and
+    both agree with the plain version."""
+    rng = np.random.default_rng(17)
+    x = rng.normal(280, 5, (300, 400)).astype(np.float32)
+    x[40, 10] = x[41, 300] = x[170:172, 129] = np.nan
+    x[299, 399] = np.inf
+    xd = torch.as_tensor(x, device=dev)
+    for h in (2, 7, 30):
+        _assert_matches(tops.neighbourhood(xd, h, stat),
+                        tops._xla_basic(xd, h, stat), TOL)
+
+
+def test_count_at_the_f32_integer_edge(dev):
+    """Count at h=2000 over 4001 x 4001 (wide route): the centre's window
+    holds 4001^2 = 16,008,001 cells, below 2^24, exact in f32."""
+    x = torch.zeros((4001, 4001), device=dev)
+    x[0, 0] = torch.nan
+    got = stencil.neighbourhood_mean_cuda(x, 2000, 2000, int(gt.Count))
+    assert float(got[2000, 2000]) == 16008001.0 - 1
+    assert float(got[4000, 4000]) == 2001.0 * 2001.0
+    assert float(got[0, 0]) == 2001.0 * 2001.0 - 1
+
+
+@pytest.mark.parametrize("t", [1, 5, 11, 33])
+def test_quantile_fast_wide_route(dev, t):
+    """K4 past its one-block tile (h=120) through the wide route, bit for
+    bit with its plain version on the card, NaN positions included; and
+    at a halfwidth clipped to the grid."""
+    x = _field((300, 420), seed=t)
+    thr = np.quantile(x[np.isfinite(x)], np.linspace(0, 1, t)).astype(
+        np.float32)
+    xd, thrd = torch.as_tensor(x, device=dev), torch.as_tensor(thr,
+                                                               device=dev)
+    for h, q in ((120, 0.1), (120, 0.5), (120, 1.0), (500, 0.5)):
+        wide = stencil.neighbourhood_quantile_fast_cuda.wide
+        got = tops.neighbourhood_quantile_fast(xd, q, h, thrd)
+        assert stencil.neighbourhood_quantile_fast_cuda.wide == wide + 1
+        _assert_matches(got, tops._quantile_fast_xla(xd, q, h, thrd), None)
+
+
+@pytest.mark.parametrize("stat", stencil.MEMBER_STATS)
+@pytest.mark.parametrize("shape,h", [((320, 330, 5), 150),
+                                     ((200, 257, 3), 140)])
+def test_members_wide_route(dev, stat, shape, h):
+    """K5 past its one-block tile (h=150, h=140 with X * E odd) through
+    the wide route on the (Y, X * E) view, against its plain version and
+    K1/K2 on the last member."""
+    x = torch.as_tensor(_field_280(shape, seed=h), device=dev)
+    tol = None if stat in stencil.MINMAX_STATS else TOL
+    wide = stencil.neighbourhood_members_cuda.wide
+    got = stencil.neighbourhood_members(x, h, stat)
+    assert stencil.neighbourhood_members_cuda.wide == wide + 1
+    hy, hx = min(h, shape[0] - 1), min(h, shape[1] - 1)
+    _assert_matches(got, stencil.neighbourhood_members_plain(x, hy, hx, stat),
+                    tol)
+    k = shape[2] - 1
+    _assert_matches(got[:, :, k],
+                    tops.neighbourhood(x[:, :, k].contiguous(), h, stat), tol)
 
 
 @pytest.mark.parametrize("h", [1, 7, 8])
@@ -230,14 +362,19 @@ def _problem(seed=7, n=80, n_obs=120):
     return grid, pts, bg, pobs, np.full(n_obs, 0.2, np.float32)
 
 
-@pytest.mark.parametrize("stat", ["Mean", "Max", "Std"])
-def test_pipeline_on_card(dev, stat):
-    grid, pts, bg, pobs, ratios = _problem()
+@pytest.mark.parametrize("stat,halfwidth", [("Mean", 3), ("Max", 3),
+                                            ("Std", 3), ("Mean", 100)])
+def test_pipeline_on_card(dev, stat, halfwidth):
+    """Pipeline on the card: general == resolve bit for bit, within 1e-3
+    of the CPU's plain versions; at halfwidth 100, on a 200 x 200 grid,
+    the smoothing takes K1's wide route."""
+    grid, pts, bg, pobs, ratios = _problem(n=200 if halfwidth == 100
+                                           else 80)
     if stat == "Std":
         # E[x^2] - E[x]^2 of the 280 K field cancels most of f32's digits
         # (tests/test_torch_pipeline.py); smooth its anomaly instead
         bg, pobs = bg - np.float32(280.0), pobs - np.float32(280.0)
-    kw = dict(halfwidth=3, statistic=getattr(gt.Statistic, stat),
+    kw = dict(halfwidth=halfwidth, statistic=getattr(gt.Statistic, stat),
               max_points=8, tiled=True, tile_shape=(16, 32), ratios=ratios)
     card = gt.Pipeline(grid, pts, gt.BarnesStructure(30000.0), device=dev,
                        **kw)
@@ -245,6 +382,8 @@ def test_pipeline_on_card(dev, stat):
                       **kw)
     gap = pobs.copy()
     gap[::3] = np.nan
+    k1 = stencil.neighbourhood_mean_cuda
+    wide, calls = k1.wide, k1.launches
     for po in (pobs, pobs + 1.0, gap):
         bgd, pod = torch.as_tensor(bg, device=dev), torch.as_tensor(
             po, device=dev)
@@ -255,6 +394,10 @@ def test_pipeline_on_card(dev, stat):
                               ratios, path="general")
         np.testing.assert_allclose(general.cpu().numpy(), want.numpy(),
                                    rtol=0, atol=1e-3)
+    if stat == "Mean":
+        assert k1.launches > calls
+        assert k1.wide - wide == (k1.launches - calls
+                                  if halfwidth == 100 else 0)
     with pytest.raises(ValueError, match="runs on cuda"):
         card.run_device(torch.as_tensor(bg), torch.as_tensor(pobs))
 

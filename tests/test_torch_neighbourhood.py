@@ -295,3 +295,62 @@ def test_cpu_tensor_never_reaches_the_kernel():
     with pytest.raises(ValueError, match="CUDA tensor"):
         stencil.neighbourhood_mean_cuda(torch.zeros(8, 8), 1, 1,
                                         int(Statistic.Mean))
+
+
+def _field_280(shape, seed):
+    """The benchmark's background, normal(280, 5), 10% missing. Windows past
+    h=80 sum thousands of cells: on a zero-mean field the sum cancels below
+    the f32 rounding of its partial sums, so the wide cases use this field
+    (its anomaly for Std/Variance, tests/test_torch_pipeline.py)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(280, 5, shape).astype(np.float32)
+    x[rng.random(shape) < 0.1] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("stat", [Statistic.Mean, Statistic.Sum,
+                                  Statistic.Count, Statistic.Min,
+                                  Statistic.Max, Statistic.Std,
+                                  Statistic.Variance])
+@pytest.mark.parametrize("shape,h", [((230, 330), 81), ((230, 330), 100),
+                                     ((320, 330), 150)])
+def test_wide_halfwidths_match_jax(stat, shape, h):
+    """Wide unclipped halfwidths, where the card takes the wide route: the
+    plain versions, which the card is held to, against gridpp_tpu's XLA
+    path."""
+    x = _field_280(shape, seed=h)
+    if stat in (Statistic.Std, Statistic.Variance):
+        x = x - np.float32(280.0)
+    got = _ops(x, h, stat)
+    want = np.asarray(jnops._xla_basic(jnp.asarray(x), h, int(stat)))
+    np.testing.assert_allclose(got, want, **TOLS[stat])
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+
+
+@pytest.mark.parametrize("q", [0.1, 0.5, 0.9])
+@pytest.mark.parametrize("shape", [(230, 330), (320, 330)])
+def test_quantile_fast_wide_halfwidth_matches_jax(q, shape):
+    """K4's plain version at h=120, past the 88 its one-block kernel takes,
+    against gridpp_tpu's XLA path (tests/test_pallas_stencil.py:67)."""
+    x = _field(shape, seed=120)
+    thr = np.quantile(x[np.isfinite(x)],
+                      np.linspace(0, 1, 11)).astype(np.float32)
+    got = tops.neighbourhood_quantile_fast(torch.as_tensor(x), q, 120,
+                                           torch.as_tensor(thr)).numpy()
+    want = np.asarray(jnops.neighbourhood_quantile_fast(
+        jnp.asarray(x), q, 120, jnp.asarray(thr)))
+    np.testing.assert_allclose(got, want, **QF_TOL)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+
+
+def test_members_wide_halfwidth_matches_jax():
+    """K5's plain version at h=150 on (320, 330, 3), per member against
+    gridpp_tpu's XLA path."""
+    x = _field_280((320, 330, 3), seed=150)
+    for stat in (Statistic.Mean, Statistic.Count, Statistic.Max):
+        got = stencil.neighbourhood_members(torch.as_tensor(x), 150,
+                                            int(stat)).numpy()
+        for k in range(3):
+            want = np.asarray(jnops._xla_basic(jnp.asarray(x[:, :, k]), 150,
+                                               int(stat)))
+            np.testing.assert_allclose(got[:, :, k], want, **TOLS[stat])

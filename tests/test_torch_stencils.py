@@ -7,7 +7,16 @@ rtol 1e-5, atol 1e-4 for Mean/Count and exact for Min/Max (:199). K4's plain
 version is ops/neighbourhood.py::_quantile_fast_xla, tested in
 tests/test_torch_neighbourhood.py. The kernels themselves are held to these
 plain versions on a card (tests/test_torch_cuda.py, chip_smoke.py).
+
+The launch plans are Python and tested here: K4's lanes and groups, K5's
+tiling, K1/K2's strips and runs, and stencil_plan's route (the one-block
+kernel up to each pinned limit, the wide route past it); with numpy
+replays of K4's packed running counts, of the shared-core folds of the
+strip kernel and of the wide route, and of K1's analytic count and NaN
+vote.
 """
+import functools
+import operator
 import os
 
 import jax.numpy as jnp
@@ -204,38 +213,49 @@ def test_quantile_fast_plan_takes_every_halfwidth_it_took_before():
 @pytest.mark.parametrize("stat", [Statistic.Mean, Statistic.Max])
 @pytest.mark.parametrize("nx", [9, 257, 2000])
 def test_member_plan_fits(stat, nx):
-    """K5's plan for every E from 1 to 64 and h <= 7: all members in one
-    block where the tile fits, tile rows of bx + 2hx columns and an
-    aligned pitch with room for the row shift, within the card's 232,448
-    bytes of shared memory."""
+    """K5's plan for every E from 1 to 64 and h <= 7: every member in one
+    block, tile rows of bx + 2hx columns and an aligned pitch with room
+    for the row shift, within the card's 232,448 bytes of shared memory."""
     for e in range(1, 65):
         for h in range(1, 8):
             plan = stencil.member_plan(nx, e, h, h, int(stat))
-            assert 1 <= plan.chunk <= e and 1 <= plan.bx <= nx
+            assert 1 <= plan.bx <= nx
             assert plan.pitch % 4 == 0
-            assert plan.pitch >= (plan.bx + 2 * h) * plan.chunk + 3
+            assert plan.pitch >= (plan.bx + 2 * h) * e + 3
             counts = 2 * stencil.K5_ROWS if stat == Statistic.Mean else 0
             assert plan.smem == (4 * (stencil.K5_ROWS + 2 * h) + counts) \
                 * plan.pitch
             assert plan.smem <= stencil.SMEM_LIMIT
-            assert plan.chunk == e  # h <= 7 never needs a member chunk
 
 
 def test_member_plan_chunks_members_or_raises():
-    """Wide halos take fewer members a block, down to one member of one
-    grid column; past that the plan raises, as K1 on the member layout
-    did where its tile did not fit."""
-    plan = stencil.member_plan(2000, 64, 20, 300, int(Statistic.Mean))
-    assert plan.chunk < 64 and plan.smem <= stencil.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        stencil.member_plan(10, 3, 5000, 1, int(Statistic.Mean))
-    for hy in range(0, 200, 11):
-        for hx in range(0, 200, 13):
-            old = 4 * (32 + 2 * hy + 64) * (64 + 2 * hx)  # K1 on one member
-            if old <= stencil.SMEM_LIMIT:
-                assert stencil.member_plan(
-                    400, 10, hy, hx, int(Statistic.Mean)).smem \
-                    <= stencil.SMEM_LIMIT
+    """A block takes every member or none: where one grid column of every
+    member does not fit (wide halos, many members), the plan raises, and
+    stencil_plan sends the call to the wide route on the (Y, X * E) view;
+    the tile's size decides exactly where."""
+    for e, hy, hx in ((64, 20, 300), (10, 5000, 1), (200, 40, 40)):
+        with pytest.raises(ValueError, match="shared memory"):
+            stencil.member_plan(2000, e, hy, hx, int(Statistic.Mean))
+        plan = stencil.stencil_plan("K5", (6000, 2000, e), hy, hx,
+                                    int(Statistic.Mean))
+        assert plan.route == "wide"
+        assert plan.scratch == stencil.wide_scratch(
+            "K5", (6000, 2000, e), int(Statistic.Mean))
+    for stat in (Statistic.Mean, Statistic.Max):
+        counts = 2 * stencil.K5_ROWS if stat == Statistic.Mean else 0
+        for e in (1, 10, 64):
+            for hy in range(0, 200, 11):
+                for hx in range(0, 200, 13):
+                    # one grid column of every member: the smallest tile
+                    pitch = -(-((1 + 2 * hx) * e + 3) // 4) * 4
+                    fits = (4 * (stencil.K5_ROWS + 2 * hy) + counts) * pitch \
+                        <= stencil.SMEM_LIMIT
+                    if fits:
+                        plan = stencil.member_plan(400, e, hy, hx, int(stat))
+                        assert plan.smem <= stencil.SMEM_LIMIT
+                    else:
+                        with pytest.raises(ValueError, match="shared memory"):
+                            stencil.member_plan(400, e, hy, hx, int(stat))
 
 
 def test_quantile_fast_packed_running_counts():
@@ -298,3 +318,258 @@ def test_every_kernel_source_is_built():
             assert f"int {fn}(" in f.read()
     with pytest.raises(ValueError, match="no kernel source"):
         stencil.build_kernel("neighbourhood_median")
+
+
+# -- the route plan (F7) and K1/K2's strip walk ------------------------------
+# the largest halfwidth (hy = hx) at which stencil_plan keeps each
+# one-block kernel on a 2000-wide grid (K5 with 10 members): the measured
+# crossover FUSED_MAX_H, and for K4 the largest its tile fits; past it the
+# wide route
+FUSED_LIMITS = [("K1", int(Statistic.Mean), 0, 64),
+                ("K2", int(Statistic.Max), 0, 60),
+                ("K3", int(Statistic.Std), 0, 36),
+                ("K4", None, 11, 88),
+                ("K5", int(Statistic.Mean), 0, 10),
+                ("K5", int(Statistic.Max), 0, 10)]
+
+
+def _plan_shape(kernel, n):
+    return (n, n, 10) if kernel == "K5" else (n, n)
+
+
+@pytest.mark.parametrize("kernel,stat,t,limit", FUSED_LIMITS)
+def test_stencil_plan_fused_limits(kernel, stat, t, limit):
+    """Fused at h=7 and up to the pinned limit, wide past it, on a 2000-wide
+    grid; the wide route's scratch is sized from the shape."""
+    shape = _plan_shape(kernel, 2000)
+    for h in (1, 7, limit):
+        plan = stencil.stencil_plan(kernel, shape, h, h, stat, t=t)
+        assert plan.route == "fused" and plan.scratch == ()
+    for h in (limit + 1, 300, 1999):
+        plan = stencil.stencil_plan(kernel, shape, h, h, stat, t=t)
+        assert plan.route == "wide" and plan.fused is None
+        assert plan.scratch == stencil.wide_scratch(kernel, shape, stat, t)
+
+
+@pytest.mark.parametrize("kernel,stat,t,limit", FUSED_LIMITS)
+def test_stencil_plan_small_grids(kernel, stat, t, limit):
+    """On small grids the clipped halfwidths decide: an 11-wide grid clips
+    every h to 10, within each limit (fused); a 400-wide one takes h=7 fused
+    and h=200 wide."""
+    shape = _plan_shape(kernel, 11)
+    assert stencil.stencil_plan(kernel, shape, 10, 10, stat,
+                                t=t).route == "fused"
+    shape = _plan_shape(kernel, 400)
+    assert stencil.stencil_plan(kernel, shape, 7, 7, stat,
+                                t=t).route == "fused"
+    assert stencil.stencil_plan(kernel, shape, 200, 200, stat,
+                                t=t).route == "wide"
+
+
+@pytest.mark.parametrize("e", [1, 3, 10, 25, 64])
+def test_stencil_plan_k5_takes_whole_members(e):
+    """K5's one-block kernel takes every member in one block: up to the
+    crossover it is the route wherever member_plan fits, and the wide
+    route is taken only where it raises."""
+    limit = stencil.FUSED_MAX_H["K5"]
+    for nx in (9, 257, 2000):
+        for h in range(0, 40, 3):
+            hx = min(h, nx - 1)
+            plan = stencil.stencil_plan("K5", (300, nx, e), h, hx,
+                                        int(Statistic.Mean))
+            if plan.route == "fused":
+                assert h <= limit
+                assert plan.fused == stencil.member_plan(
+                    nx, e, h, hx, int(Statistic.Mean))
+            elif h <= limit:
+                with pytest.raises(ValueError, match="shared memory"):
+                    stencil.member_plan(nx, e, h, hx, int(Statistic.Mean))
+
+
+def test_wide_scratch_sizes():
+    n = 3 * 40 * 50
+    f32, i32 = torch.float32, torch.int32
+    assert stencil.wide_scratch("K1", (3, 40, 50), 0) == ((f32, n), (i32, n))
+    assert stencil.wide_scratch("K2", (3, 40, 50), 30) == ((f32, n),)
+    assert stencil.wide_scratch("K3", (3, 40, 50), 50) == (
+        (f32, n), (f32, n), (i32, n))
+    assert stencil.wide_scratch("K4", (40, 50), None, 11) == (
+        (i32, 12 * 2000),)
+    assert stencil.wide_scratch("K5", (40, 50, 7), 80) == (
+        (f32, 14000), (i32, 14000))
+    with pytest.raises(ValueError, match="no stencil kernel"):
+        stencil.stencil_plan("K9", (8, 8), 1, 1)
+
+
+@pytest.mark.parametrize("counts", [True, False])
+@pytest.mark.parametrize("shape", [(2000, 2000), (11, 2000, 2000), (1, 500),
+                                   (500, 1), (97, 301), (3, 130, 257)])
+def test_strip_plan_geometry(shape, counts):
+    """K1/K2's plan: strips of a multiple of 8 columns whose tile row fits
+    one round of 256 threads (bw + 2hx <= 128 for hx <= 32), runs of a
+    multiple of 16 rows covering the grid, about one wave of blocks where
+    the grid allows, and the header's shared-memory formula."""
+    for h in (0, 1, 7, 8, 9, 32, 60, 87):
+        hy, hx = min(h, shape[-2] - 1), min(h, shape[-1] - 1)
+        plan = stencil.strip_plan(shape, hy, hx, counts)
+        assert plan.bw % 8 == 0 and plan.bw >= 8 and plan.bw <= 128
+        if hx <= 32:
+            assert plan.bw + 2 * hx <= 128
+        assert plan.rows % 16 == 0
+        planes = shape[0] if len(shape) == 3 else 1
+        strips = -(-shape[-1] // plan.bw)
+        runs = -(-shape[-2] // plan.rows)
+        assert plan.blocks == strips * runs * planes
+        assert (runs - 1) * plan.rows < shape[-2] <= runs * plan.rows
+        slots = stencil.H100_SMS * stencil.STRIP_BLOCKS_PER_SM
+        if runs > 1:
+            assert plan.blocks <= slots
+        assert plan.smem == stencil.strip_smem(plan.bw, hy, hx, counts)
+        assert plan.smem <= stencil.SMEM_LIMIT
+    assert stencil.strip_plan((2000, 2000), 7, 7, True) == stencil.StripPlan(
+        112, 96, 378, 40672)
+    with pytest.raises(ValueError, match="shared memory"):
+        stencil.strip_plan((2000, 2000), 88, 88, True)
+
+
+def _replay_fold(len_, n_out, values):
+    """fold_half / fold_row_fixed's association (csrc/stencil_strip.cuh) on
+    `values` (a list), with op = +: the head folded bottom up, the core
+    once, the tail top down; direct below n_out terms."""
+    if len_ < n_out:
+        return [functools.reduce(operator.add, values[r:r + len_])
+                for r in range(n_out)]
+    head = [None] * n_out
+    head[n_out - 1] = type(values[0])()
+    head[n_out - 2] = values[n_out - 2]
+    for r in range(n_out - 3, -1, -1):
+        head[r] = values[r] + head[r + 1]
+    core = values[n_out - 1]
+    for d in range(n_out, len_):
+        core = core + values[d]
+    out, tail = [], type(values[0])()
+    for r in range(n_out):
+        out.append(core + tail if r == n_out - 1 else head[r] + core + tail)
+        if r < n_out - 1:
+            tail = values[len_] if r == 0 else tail + values[len_ + r]
+    return out
+
+
+class _Terms(frozenset):
+    """A sum as the set of its terms; + asserts each term is added once."""
+
+    def __add__(self, other):
+        assert not (self & other), "a term added twice"
+        return _Terms(self | other)
+
+
+@pytest.mark.parametrize("len_", [1, 3, 7, 8, 9, 15, 17, 31, 65, 175])
+def test_strip_fold_association_is_the_window(len_):
+    """The shared-core fold gives output r exactly the terms r .. r + len -
+    1, each once: a direct sum of the window in another association (also
+    the horizontal pass above hx = 8, up to K1's largest fused hx, 87)."""
+    values = [_Terms({i}) for i in range(len_ + 8)]
+    for r, got in enumerate(_replay_fold(len_, 8, values)):
+        assert got == set(range(r, r + len_))
+
+
+@pytest.mark.parametrize("shape,h", [((37, 150), 3), ((50, 260), 7),
+                                     ((90, 9), 7), ((130, 300), 9)])
+def test_strip_analytic_count_replay(shape, h):
+    """K1's count, replayed in numpy on its strips and chunks: a chunk whose
+    vertical folds read more non-finite cells than their NaN padding (the
+    kernel's vote) counts; every other chunk takes cy * cx, which must then
+    equal the finite cells of each output's window, at the domain edges
+    too. NaN sits next to NaN-free chunks and at the corners."""
+    ny, nx = shape
+    hy, hx = min(h, ny - 1), min(h, nx - 1)
+    rng = np.random.default_rng(h)
+    x = rng.normal(280, 5, shape).astype(np.float32)
+    x[0, 0] = x[ny // 2, nx - 1] = x[ny - 1, nx // 3] = np.nan
+    x[min(17, ny - 1), 2] = np.inf
+    plan = stencil.strip_plan(shape, hy, hx, True)
+    bw, ch, half = plan.bw, stencil.STRIP_CHUNK, stencil.STRIP_CHUNK // 2
+    pad = np.full((ny + 2 * hy + 2 * ch, nx + 2 * hx + bw), np.nan,
+                  np.float32)
+    pad[hy:hy + ny, hx:hx + nx] = x          # pad[r, c] = x[r - hy, c - hx]
+    fin = np.isfinite(pad[hy:hy + ny, hx:hx + nx])
+    count = sum(np.pad(fin, ((hy, hy), (hx, hx)))[dy:dy + ny, dx:dx + nx]
+                for dy in range(2 * hy + 1) for dx in range(2 * hx + 1))
+    took_analytic = took_counted = 0
+    for x0 in range(0, nx, bw):
+        xs = x0 - hx
+        for yc in range(0, ny, ch):
+            bad, inside = False, False
+            for k0 in (0, half):
+                ytop = yc - hy + k0
+                n_rows = half + 2 * hy
+                for c in range(bw + 2 * hx):
+                    col = pad[ytop + hy:ytop + hy + n_rows, xs + c + hx]
+                    nonfinite = int((~np.isfinite(col)).sum())
+                    col_in = 0 <= xs + c < nx
+                    padding = (n_rows - max(0, min(ytop + n_rows, ny)
+                                            - max(ytop, 0))
+                               if col_in else n_rows)
+                    rows = np.arange(ytop, ytop + n_rows)
+                    in_dom = col_in & (rows >= 0) & (rows < ny)
+                    truth = bool((~np.isfinite(col) & in_dom).any())
+                    assert (nonfinite > padding) == truth
+                    bad |= truth
+                    inside |= truth
+            if bad:
+                took_counted += 1
+                continue
+            took_analytic += 1
+            for y in range(yc, min(yc + ch, ny)):
+                cy = min(y + hy, ny - 1) - max(y - hy, 0) + 1
+                for gx in range(x0, min(x0 + bw, nx)):
+                    cx = min(gx + hx, nx - 1) - max(gx - hx, 0) + 1
+                    assert cy * cx == count[y, gx]
+    assert took_analytic > 0 and took_counted > 0
+
+
+def _replay_wide_fold(n_rows, h, run=16, block=32):
+    """wide_fold's rows for each output (csrc/neighbourhood_wide.cu), as
+    term sets: runs of `run` outputs, the head folded bottom up, the core
+    in blocks of `block` terms, the tail top down, every window clipped to
+    rows [0, n_rows)."""
+    empty = _Terms()
+    row = [_Terms({r}) for r in range(n_rows)]
+
+    def window(lo, hi):
+        total, part, k = empty, empty, 0
+        for r in range(lo, hi + 1):
+            part, k = part + row[r], k + 1
+            if k == block or r == hi:
+                total, part, k = total + part, empty, 0
+        return total
+
+    outs = []
+    for r0 in range(0, n_rows, run):
+        n_out = min(run, n_rows - r0)
+        if 2 * h + 1 < run:
+            outs += [window(max(r - h, 0), min(r + h, n_rows - 1))
+                     for r in range(r0, r0 + n_out)]
+            continue
+        head = [empty] * run
+        for k in range(run - 2, -1, -1):
+            r = r0 + k - h
+            head[k] = ((row[r] if r >= 0 else empty) + head[k + 1]
+                       if k < n_out - 1 else empty)
+        core = window(max(r0 + n_out - 1 - h, 0), min(r0 + h, n_rows - 1))
+        tail = empty
+        for k in range(n_out):
+            if k > 0 and r0 + k + h <= n_rows - 1:
+                tail = tail + row[r0 + k + h]
+            outs.append(head[k] + core + tail)
+    return outs
+
+
+@pytest.mark.parametrize("n_rows,h", [(40, 7), (40, 8), (37, 30), (5, 100),
+                                      (100, 3), (300, 120), (17, 16)])
+def test_wide_fold_association_is_the_window(n_rows, h):
+    """Each output of the wide route's fold holds exactly the rows of its
+    window clipped to the domain, each once, at the domain edges and with
+    a partial last run too."""
+    for r, got in enumerate(_replay_wide_fold(n_rows, h)):
+        assert got == set(range(max(r - h, 0), min(r + h, n_rows - 1) + 1))
