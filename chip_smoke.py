@@ -11,15 +11,16 @@ Run from the root of a checkout. In order it:
    prints the build times and the compiler's resource report;
 3. holds every kernel against its plain PyTorch version on the card, on
    K1's cases (2000 x 2000 with 0% and 10% NaN, small edge shapes, a
-   batched (3, 256, 300), and K1/K2's strip edges: 1-row and 1-column
-   fields, X not a multiple of 4 or 128, hx above the register cap (9,
-   32), the largest halfwidth at which both stay fused (60), a NaN-free
-   field with a few NaN): K1
+   batched (3, 256, 300), EnSI's ten 2000 x 2000 member planes with 0% and
+   10% NaN, and the strip edges of K1/K2/K3: 1-row and 1-column fields, X
+   not a multiple of 4 or 128, hx above the register cap (9, 32), the
+   largest halfwidth at which K2 stays fused (60), a NaN-free field with a
+   few NaN): K1
    (Mean/Sum/Count) rtol 1e-5, atol 1e-4; K2 (Min/Max) equality; K3
-   (Std/Variance) rtol 2e-5, atol 2e-3; K4 (quantile_fast) bit for bit,
-   NaN positions included, at q in {0, 0.25, 0.5, 0.9, 1}, at h=7 and h=8
-   (either side of its 8/16-bit lane width) and h=88 (the largest its
-   one-block kernel takes) with T in {1, 4, 5, 11, 12, 33} (unsorted at
+   (Std/Variance) rtol 2e-5, atol 2e-3; K4 (quantile_fast, which has only
+   the wide route) bit for bit, NaN positions included, at q in {0, 0.25,
+   0.5, 0.9, 1}, at h=7 and h=8 (either side of the 8/16-bit lane width of
+   its window counts) and h=88 with T in {1, 4, 5, 11, 12, 33} (unsorted at
    12), on exact cdf ties at h in {1, 7, 8}, all NaN for a NaN q; K5
    (members) at E in {1, 3, 10, 25} on (130, 257, E) (X * E not a
    multiple of 4), at 2000 x 2000 x 10 with 10% NaN and on a NaN-free
@@ -29,12 +30,15 @@ Run from the root of a checkout. In order it:
    (ops/stencil.py::stencil_plan picks it past each kernel's crossover):
    K1-K3 at h in {81, 100, 300} on
    the 2000 x 2000 normal(280, 5) field with 10% NaN (its anomaly for K3),
-   K4 at h=120 bit for bit, K5 at h=150 on 2000 x 2000 x 10, each call
-   counted on the wrapper's wide counter;
+   K4 bit for bit at h in {8, 120, 300} (361,201 cells a window at 300)
+   with T in {1, 11, 33} on a 2000 x 2000 field with 10%
+   NaN and an all-NaN region, and on exact cdf ties, K5 at h=150 on
+   2000 x 2000 x 10, each call counted on the wrapper's wide counter;
 4. times each kernel, its plain version and, where one PyTorch call
    computes the same function (NaN-free input), that call, by CUDA events
    at full width, and the kernel's device time alone from torch.profiler:
-   K1/K2/K3 at 2000 x 2000, h=7 (F.avg_pool2d / F.max_pool2d for K1/K2);
+   K1/K2/K3 at 2000 x 2000, h=7 (F.avg_pool2d / F.max_pool2d for K1/K2),
+   and K3 on EnSI's ten member planes;
    K4 on a uniform [0, 1) 2000 x 2000 field, h=7, q=0.5, thresholds
    linspace(0, 1, 11) (tests/benchmark.py:65-67, 94-95); K5 Mean on the
    2000 x 2000 x 10 normal(280, 5) ensemble (F.avg_pool2d on its
@@ -43,8 +47,9 @@ Run from the root of a checkout. In order it:
    each kernel's bound (one read and one write at 3.35 TB/s, or its
    operations at the H100's f32/int32 rate, whichever is longer); then
    each kernel at h=100 and h=300 by the route its plan picks (the wide
-   route), beside its bound, its plain version and, at
-   h=100, F.avg_pool2d / F.max_pool2d for K1/K2;
+   route; K4's only one), beside its bound, its plain version and, at
+   h=100, F.avg_pool2d / F.max_pool2d for K1/K2, with the device time of
+   each of K4's two passes;
 5. the serving path: builds Pipeline at the benchmark configuration
    (2000 x 2000 grid, 10,000 obs, BarnesStructure(10 km), max_points=10,
    neighbourhood Mean h=7, ratios 0.1, seed 0) on the card, runs cycles of
@@ -55,10 +60,11 @@ Run from the root of a checkout. In order it:
    h=100, each cycle's K1 call through the wide route;
 6. the neighbourhood-statistics path, with every launch count set to 0
    before it and read after: the same Pipeline smoothed with Max h=7
-   (checks as in 5, one K2 launch per cycle), then ops.neighbourhood Std
-   (K3), ops.neighbourhood_quantile_fast (K4) and
-   ops.stencil.neighbourhood_members (K5) at full width; each kernel must
-   have launched;
+   (checks as in 5, one K2 launch per cycle), then with Std h=7 on the
+   field's anomaly (one K3 launch per cycle), then ops.neighbourhood Std
+   (K3), ops.neighbourhood_quantile_fast (K4) at h=7 and at h=100 and
+   ops.stencil.neighbourhood_members (K5) at full width;
+   each kernel must have launched;
 7. ensemble OI at the benchmark's ensemble rows (bench.py:160-186): one
    BarnesStructure(10 km) shared by every ensemble pipeline (the canonical
    shortlist is built once), a 2000 x 2000 x 10 normal(280, 5) ensemble,
@@ -66,7 +72,10 @@ Run from the root of a checkout. In order it:
    Mean h=7: 5 all-valid (fast) cycles and 5 general cycles on the same
    inputs, equal bit for bit, then a general cycle with a third of the obs
    missing; finite outputs, no condition failures, exactly one K5 launch
-   per smoothed cycle. Then MultiEnsiPipeline ebesc, ebe and utem, 5
+   per smoothed cycle. Then EnsiPipeline smoothed with Std h=7 (obs of its
+   smoothed members' mean): 3 cycles, finite, no condition failures,
+   exactly one K3 launch on the (E, Y, X) member planes per cycle. Then
+   MultiEnsiPipeline ebesc, ebe and utem, 5
    cycles each: finite outputs, no utem condition failures. Prints each
    pipeline's set-up time, the median cycle times and the phase's peak
    device memory;
@@ -98,8 +107,9 @@ Run from the root of a checkout. In order it:
    share of cells within 2e-4 printed.
 
 Any failed check raises. The line before the last is a JSON record of the
-kernels (K1-K5 and the wide route, whose launches are phase 5's h=100
-cycles); the last line is {"ok": true, "device": {...}}.
+kernels (K1-K5; K3's launches those of phase 6's Std cycles and call, K4's
+phase 6's two calls; the wide route of K1, whose launches are phase 5's
+h=100 cycles); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -175,10 +185,11 @@ def event_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, by_kernel=False):
     """Mean device (kernel) time of fn() over reps calls from
     torch.profiler's CUPTI trace, host overhead excluded; None when the
-    trace shows no device time."""
+    trace shows no device time. by_kernel: {kernel name: ms a call}
+    instead."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -187,9 +198,12 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    times = {e.key: e.self_device_time_total / reps / 1e3
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    if by_kernel:
+        return times
+    return sum(times.values()) or None
 
 
 def bound_ms(nbytes, ops, ops_rate):
@@ -267,9 +281,9 @@ def report(name, times):
 
 
 def ensemble_phase(gt, stencil, dev, grid, points, pback, obs, gap, ratios):
-    """Phase 7. Returns (K5's launches on the smoothed EnSI path, the
-    numpy ensemble, the structure object every ensemble pipeline
-    shared)."""
+    """Phase 7. Returns (K5's launches on the Mean-smoothed EnSI path, K3's
+    on the Std-smoothed one, the numpy ensemble, the structure object every
+    ensemble pipeline shared)."""
     rng = np.random.default_rng(3)
     n, p = grid.size()[0], points.size()
     # one structure object: canonical_shortlist's cache (keyed on its id)
@@ -323,6 +337,28 @@ def ensemble_phase(gt, stencil, dev, grid, points, pback, obs, gap, ratios):
         if h:
             k5 = launches
         del pipe, fast, general, outs, gap_out
+    # Std h=7: one batched K3 launch on the (E, Y, X) member planes a
+    # cycle; obs of the smoothed members' mean, so the analysis stays near
+    # its background
+    pipe = build(gt.EnsiPipeline, halfwidth=7, statistic=gt.Statistic.Std)
+    nn = torch.as_tensor(grid.nearest_map(points.lats, points.lons),
+                         device=dev)
+    smoothed = stencil.neighbourhood_var_plain(
+        bgs[0].permute(2, 0, 1).contiguous(), 7, 7, int(gt.Statistic.Std))
+    sd_obs = smoothed.mean(dim=0).reshape(-1)[nn] + torch.as_tensor(
+        rng.normal(0, 0.1, p).astype(np.float32), device=dev)
+    del smoothed
+    stencil.neighbourhood_var_cuda.launches = 0
+    res = [timed(lambda: pipe.run_device(bgs[i], sd_obs + 0.01 * i, psig))
+           for i in range(3)]
+    k3 = stencil.neighbourhood_var_cuda.launches
+    check(k3 == len(res), f"EnSI Std h=7: {k3} K3 launches in {len(res)} "
+                          "cycles")
+    check(all(bool(torch.isfinite(o).all()) and int(c) == 0
+              for (o, c), _ in res),
+          "EnSI Std h=7: every output finite, no condition failures")
+    report("EnSI Std h=7 general", [t for _, t in res])
+    del pipe, res, sd_obs
     for variant in ("ebesc", "ebe", "utem"):
         pipe = build(gt.MultiEnsiPipeline, variant=variant)
 
@@ -340,7 +376,7 @@ def ensemble_phase(gt, stencil, dev, grid, points, pback, obs, gap, ratios):
                   "utem: no condition failures")
         report(variant, [t for _, t in res])
         del pipe, res
-    return k5, ens_np, structure
+    return k5, k3, ens_np, structure
 
 
 API_TOL = 1e-2      # tests/test_parity_dense.py:10, :37, :65, :101
@@ -671,7 +707,8 @@ def main():
              ((256, 300), 7, 0.1), ((3, 256, 300), 7, 0.1),
              ((1, 500), 3, 0.1), ((500, 1), 3, 0.1), ((97, 301), 7, 0.1),
              ((33, 129), 9, 0.1), ((200, 130), 32, 0.1),
-             ((200, 130), 60, 0.1), ((300, 400), 7, 1e-5)]
+             ((200, 130), 60, 0.1), ((300, 400), 7, 1e-5),
+             ((N_ENS, 2000, 2000), 7, 0.1), ((N_ENS, 2000, 2000), 7, 0.0)]
     # statistic -> (kernel, its wrapper, its plain version, bar)
     plane_kernels = [
         (stat, "K1", stencil.neighbourhood_mean_cuda,
@@ -725,11 +762,10 @@ def main():
             check(ok, f"K4 {shape} h={h} nan={nan_frac} q={q} equal, "
                       f"max|d|={e:.3g}")
             err["K4"] = max(err["K4"], e)
-    # either side of the 8/16-bit lane boundary (h=7: 225 cells, h=8: 289),
-    # thresholds that fill, straddle and overflow the packed words, and the
-    # largest halfwidth its one-block kernel takes (h=88; the plain version
-    # calls K1 on the card, which takes h=88 by the wide route); thresholds
-    # unsorted in one case
+    # either side of the 8/16-bit lane boundary of the window counts (h=7:
+    # 225 cells, h=8: 289), thresholds that fill, straddle and overflow the
+    # packed words, and h=88 (the plain version calls K1 on the card, which
+    # takes h=88 by the wide route); thresholds unsorted in one case
     for shape, h, qs in (((256, 300), 7, (0.1, 0.5, 1.0)),
                          ((256, 300), 8, (0.1, 0.5, 1.0)),
                          ((180, 200), 88, (0.5,))):
@@ -807,16 +843,43 @@ def main():
                             tol)
             check(ok, f"{k} wide 2000x2000 h={h} stat={stat} max|d|={e:.3g}")
             wide_err = max(wide_err, e)
-    xq = torch.as_tensor(field(rng, (2000, 2000), 0.1), device=dev)
-    thrq = torch.as_tensor(np.quantile(
-        xq.cpu().numpy()[np.isfinite(xq.cpu().numpy())],
-        np.linspace(0, 1, 11)).astype(np.float32), device=dev)
-    for q in (0.25, 0.5, 0.9):
-        ok, e = compare(stencil.neighbourhood_quantile_fast_cuda(
-            xq, q, 120, 120, thrq), nops._quantile_fast_xla(xq, q, 120, thrq),
-            None)
-        check(ok, f"K4 wide 2000x2000 h=120 T=11 q={q} equal")
-    del xq
+    # K4 at h=8, h=120 and h=300 (361,201 cells a window), with 10% NaN and
+    # an all-NaN region, and on exact cdf ties, bit for bit
+    xn = field(rng, (2000, 2000), 0.1)
+    xn[300:700, 500:1100] = np.nan
+    xq = torch.as_tensor(xn, device=dev)
+    xt = torch.as_tensor(rng.integers(0, 5, (2000, 2000)), device=dev,
+                         dtype=torch.float32)
+    xt[4, 7] = torch.nan
+    # the plain K4 smooths its (T, Y, X) indicator planes with K1, by the
+    # route K1's plan picks
+    k4_wide_cases, k1_wide_plain = 0, 0
+    for h in (8, 120, 300):
+        for t_ in (1, 11, 33):
+            thrq = torch.as_tensor(np.quantile(
+                xn[np.isfinite(xn)], np.linspace(0, 1, t_)).astype(
+                np.float32), device=dev)
+            for q in (0.1, 0.5, 0.9):
+                ok, e = compare(
+                    stencil.neighbourhood_quantile_fast_cuda(xq, q, h, h,
+                                                             thrq),
+                    nops._quantile_fast_xla(xq, q, h, thrq), None)
+                check(ok, f"K4 wide 2000x2000 h={h} T={t_} q={q} (10% NaN, "
+                          "an all-NaN region) equal")
+                err["K4"] = max(err["K4"], e)
+                k4_wide_cases += 1
+                k1_wide_plain += stencil.stencil_plan(
+                    "K1", (t_, 2000, 2000), h, h, mean).route == "wide"
+        for q in (float(np.float32(1 / 3)), float(np.float32(2 / 9))):
+            ok, e = compare(stencil.neighbourhood_quantile_fast_cuda(
+                xt, q, h, h, tthr), nops._quantile_fast_xla(xt, q, h, tthr),
+                None)
+            check(ok, f"K4 wide exact cdf ties 2000x2000 h={h} q={q} equal")
+            err["K4"] = max(err["K4"], e)
+            k4_wide_cases += 1
+            k1_wide_plain += stencil.stencil_plan(
+                "K1", (tthr.numel(), 2000, 2000), h, h, mean).route == "wide"
+    del xq, xt
     xw = torch.as_tensor(field(rng, (2000, 2000, N_ENS), 0.1, 280.0, 5.0),
                          device=dev)
     for stat in stencil.MEMBER_STATS:
@@ -836,8 +899,8 @@ def main():
                   for k, stats in (("K1", stencil.MEAN_STATS),
                                    ("K2", stencil.MINMAX_STATS),
                                    ("K3", stencil.VAR_STATS))}
-    want_calls["K1"] += 3
-    want_calls.update(K4=3, K5=len(stencil.MEMBER_STATS))
+    want_calls["K1"] += k1_wide_plain
+    want_calls.update(K4=k4_wide_cases, K5=len(stencil.MEMBER_STATS))
     check(wide_calls == want_calls,
           f"the wide cases took the plan's routes: {wide_calls}")
 
@@ -917,7 +980,8 @@ def main():
               f"{'none' if r['library_ms'] is None else fmt(r['library_ms'])}"
               f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.3f} of the bound", flush=True)
-    # the same functions at wide halfwidths, by the route the plan picks.
+    # the same functions at wide halfwidths, by the route the plan picks
+    # (K4's only one).
     # Bound: the same bytes (the route's scratch round trip is its own
     # choice and not counted); operations: a direct fold that shares each
     # window's core between WIDE_RUN outputs takes (2 WIDE_RUN + 2h) /
@@ -980,10 +1044,28 @@ def main():
                   f"{'none' if r['library_ms'] is None else fmt(r['library_ms'])}"
                   f", bound {b_ms:.4f} ms ({b_by}), "
                   f"{b_ms / r['ms']:.3f} of the bound", flush=True)
+            if k == "K4":
+                # the wide route's two passes, device time a call
+                for name, t_ms in device_ms(kern, reps=5,
+                                            by_kernel=True).items():
+                    print(f"    {name[:72]}: {t_ms:.4f} ms", flush=True)
     print(f"  K5 Mean 2000x2000x10 NaN-free in one launch "
           f"{timing['K5']['ms']:.4f} ms, with 10% NaN {k5_nan_ms:.4f} ms; "
           f"10 launches of K1 on contiguous member planes "
           f"{k1_members_ms:.4f} ms", flush=True)
+    # K3 on EnsiPipeline's Std smoothing: the (E, Y, X) planes of the
+    # ensemble's anomaly in one launch
+    planes = ens.permute(2, 0, 1).contiguous() - 280.0
+    k3_planes = (lambda: stencil.neighbourhood_var_cuda(planes, 7, 7, std),
+                 lambda: stencil.neighbourhood_var_plain(planes, 7, 7, std))
+    b_ms, b_by = bound_ms(8 * cells * N_ENS, 6 * 15 * cells * N_ENS,
+                          F32_OPS_S)
+    kt = event_ms(k3_planes[0])
+    print(f"  K3 Std on {N_ENS} planes of 2000x2000 in one launch: kernel "
+          f"{kt:.4f} ms (device only {fmt(device_ms(k3_planes[0]))}), plain "
+          f"{event_ms(k3_planes[1], reps=5):.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {b_ms / kt:.3f} of the bound", flush=True)
+    del planes, k3_planes
 
     # -- 5. the serving path, Mean smoothing --
     print("[Pipeline 2000x2000, 10k obs, Mean h=7]", flush=True)
@@ -1049,24 +1131,43 @@ def main():
         w.launches = 0
     n_cycles = run_cycles(pipe, bgs, obs, gap, rat)
     k2_pipe = stencil.neighbourhood_minmax_cuda.launches
-    t0 = time.perf_counter()
-    sd = nops.neighbourhood(anom, 7, std)
-    qf = nops.neighbourhood_quantile_fast(uni, 0.5, 7, thr11)
-    mem = stencil.neighbourhood_members(xm, 7, mean)
-    torch.cuda.synchronize()
-    print(f"  Std + quantile_fast + members: {time.perf_counter() - t0:.3f} s",
-          flush=True)
-    launches.update({k: wrappers[k].launches for k in ("K2", "K3", "K4",
-                                                       "K5")})
     check(k2_pipe == n_cycles,
           f"K2 launched once per cycle ({k2_pipe} launches, {n_cycles} "
           "cycles)")
+    del pipe
+    # Std on the field's anomaly: E[x^2] - E[x]^2 of a 280 K field cancels
+    # most of f32's digits in any implementation
+    print("  [Pipeline Std h=7 on the anomaly]", flush=True)
+    pipe = pipeline(std)
+    n_cycles = run_cycles(pipe, [b - 280.0 for b in bgs],
+                          [o - 280.0 for o in obs], gap - 280.0, rat)
+    k3_pipe = stencil.neighbourhood_var_cuda.launches
+    check(k3_pipe == n_cycles,
+          f"K3 launched once per cycle ({k3_pipe} launches, {n_cycles} "
+          "cycles)")
+    stencil.neighbourhood_quantile_fast_cuda.wide = 0
+    t0 = time.perf_counter()
+    sd = nops.neighbourhood(anom, 7, std)
+    qf = nops.neighbourhood_quantile_fast(uni, 0.5, 7, thr11)
+    qf_wide = nops.neighbourhood_quantile_fast(uni, 0.5, 100, thr11)
+    mem = stencil.neighbourhood_members(xm, 7, mean)
+    torch.cuda.synchronize()
+    print(f"  Std + quantile_fast (h=7, h=100) + members: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    launches.update({k: wrappers[k].launches for k in ("K2", "K3", "K4",
+                                                       "K5")})
+    k4_wide = stencil.neighbourhood_quantile_fast_cuda.wide
+    check(k4_wide == 2 == launches["K4"], f"quantile_fast h=7 and h=100 "
+          f"each took K4's wide route once ({launches['K4']} launches, "
+          f"{k4_wide} wide)")
     for k in ("K2", "K3", "K4", "K5"):
         check(launches[k] >= 1, f"{k} launched on the path "
                                 f"({launches[k]} launches)")
     check(bool(torch.isfinite(sd).all()) and sd.shape == (2000, 2000),
           "Std: finite, (2000, 2000)")
-    check(bool(((qf >= 0) & (qf <= 1)).all()), "quantile_fast: in [0, 1]")
+    check(bool(((qf >= 0) & (qf <= 1)).all())
+          and bool(((qf_wide >= 0) & (qf_wide <= 1)).all()),
+          "quantile_fast h=7 and h=100: in [0, 1]")
     check(bool(torch.isfinite(mem).any(dim=-1).all())
           and mem.shape == (2000, 2000, 10), "members: (2000, 2000, 10)")
 
@@ -1077,9 +1178,10 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    launches["K5"], ens_np, ens_structure = ensemble_phase(
+    launches["K5"], k3_ensi, ens_np, ens_structure = ensemble_phase(
         gt, stencil, dev, grid, points, background.reshape(-1)[idx], obs,
         gap, ratios)
+    launches["K3"] += k3_ensi
     print(f"  ensemble phase {time.perf_counter() - t0:.3f} s, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB",
           flush=True)
@@ -1161,7 +1263,7 @@ def main():
     sources = {"K1": ("neighbourhood_mean", f"{PALLAS}:301"),
                "K2": ("neighbourhood_minmax", f"{PALLAS}:364"),
                "K3": ("neighbourhood_var", f"{PALLAS}:330"),
-               "K4": ("neighbourhood_quantile_fast", f"{PALLAS}:465"),
+               "K4": ("neighbourhood_wide", f"{PALLAS}:465"),
                "K5": ("neighbourhood_members", f"{PALLAS}:643")}
     kernels = [{
         "name": wrappers[k].__name__,

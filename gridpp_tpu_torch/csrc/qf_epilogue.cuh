@@ -1,7 +1,19 @@
-// The epilogue of the threshold-CDF quantile K4, shared by its one-block
-// kernel (neighbourhood_quantile_fast.cu) and its wide route
-// (neighbourhood_wide.cu), so the two read the quantile off the same counts
-// with the same instructions.
+// The packed count lanes and the epilogue of the threshold-CDF quantile K4
+// (its two passes are in neighbourhood_wide.cu: quantile_vertical,
+// quantile_horizontal).
+//
+// K4 replaces gridpp_tpu/ops/pallas_stencil.py::_qf_kernel (reached through
+// neighbourhood_quantile_fast) and stays bit for bit with its plain version,
+// ops/neighbourhood.py::_quantile_fast_xla, ties included: the counts are
+// exact integers, cdf_k is one correctly rounded division, the comparisons
+// with q are the plain version's, and every later step is an explicitly
+// rounded intrinsic in the plain version's order (no FMA contraction).
+//
+// Lane l of a cell counts the cells v with isfinite(v) && v <= lt_l: lt_0 =
+// +inf (the finite cells), lt_k = thresholds[k - 1] for 1 <= k <= T.
+// `bits`-wide lanes ride 32 / bits to a 32-bit word (ops/stencil.py::
+// qf_lane_bits picks the narrowest that holds the largest count), as the
+// TPU kernel packs them (pallas_stencil.py:503-531).
 //
 // From the window's count c of finite cells and s_k of finite cells <=
 // thresholds[k]: cdf_k = f32(s_k) / f32(max(c, 1)) (IEEE division), the
@@ -24,6 +36,67 @@ struct Packing {
   int lanes;      // lanes per word: 32 / bits
   unsigned mask;  // one lane
 };
+
+__host__ __device__ inline Packing packing(int bits) {
+  return {bits, 32 / bits, bits == 32 ? 0xffffffffu : (1u << bits) - 1u};
+}
+
+// The lane thresholds of words [word0, word0 + GW): lt[4 w + p] for lane p
+// of word w, NaN (counts nothing) past T and past a word's lanes.
+template <int GW>
+__device__ __forceinline__ void lane_thresholds(const float* __restrict__ thr,
+                                                int t, int word0,
+                                                const Packing& pk,
+                                                float (&lt)[GW * 4]) {
+#pragma unroll
+  for (int w = 0; w < GW; ++w) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int l = (word0 + w) * pk.lanes + p;
+      float v = NAN;
+      if (p < pk.lanes) {
+        if (l == 0) {
+          v = INFINITY;
+        } else if (l <= t) {
+          v = __ldg(thr + l - 1);
+        }
+      }
+      lt[w * 4 + p] = v;
+    }
+  }
+}
+
+// The GW words of one cell's indicator lanes.
+template <int GW>
+__device__ __forceinline__ void pack(float v, const float (&lt)[GW * 4],
+                                     const Packing& pk, unsigned (&word)[GW]) {
+  const bool fin = isfinite(v);
+#pragma unroll
+  for (int w = 0; w < GW; ++w) {
+    unsigned acc = 0;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (p < pk.lanes && fin && v <= lt[w * 4 + p]) {
+        acc |= 1u << (p * pk.bits);
+      }
+    }
+    word[w] = acc;
+  }
+}
+
+// Lane `l` of the words of a group (l counted from the group's first lane).
+template <int GW>
+__device__ __forceinline__ int lane_count(const unsigned (&acc)[GW], int l,
+                                          const Packing& pk) {
+  const int w = l / pk.lanes;
+  const int p = l - w * pk.lanes;
+  unsigned word = 0;
+#pragma unroll
+  for (int i = 0; i < GW; ++i) {
+    if (i == w) word = acc[i];
+  }
+  return static_cast<int>((word >> (p * pk.bits)) & pk.mask);
+}
 
 // Per-cell state of the inverse CDF.
 struct Cell {

@@ -1,5 +1,5 @@
-// The strip-walking window stencil of K1 (Mean/Sum/Count) and K2
-// (Min/Max) for Hopper (sm_90a).
+// The strip-walking window stencil of K1 (Mean/Sum/Count), K2 (Min/Max)
+// and K3 (Std/Variance) for Hopper (sm_90a).
 //
 // A block owns a strip of `bw` output columns of one plane and walks down a
 // run of `rows` output rows (ops/stencil.py::strip_plan sets bw so that the
@@ -21,19 +21,26 @@
 //   folds its kHalf + 2hy input rows into kHalf direct (2hy+1)-term results
 //   held in registers: each input cell is read from shared memory about
 //   (kHalf + 2hy) / kHalf times, not 2hy + 1 times. Each result adds its
-//   rows top to bottom.
+//   rows top to bottom. K3 folds the pair (v, v * v) of each cell in one
+//   walk.
 // - Horizontal pass. A thread takes kOut adjacent outputs of one row: for
 //   hx <= kHCap it reads the kOut + 2hx vertical results it needs with
 //   16-byte shared loads into registers and forms every output from them,
 //   each a direct (2hx+1)-term result; above the cap it folds them as the
 //   vertical pass does, reading shared memory per term (about (kOut + 2hx)
 //   / kOut reads an output), from rows of an odd pitch so that a warp's
-//   tasks spread over the banks. Outputs are stored 32 bytes a thread
-//   where aligned.
-// - Counts (K1). A chunk whose ring rows hold no non-finite cell of the
+//   tasks spread over the banks. K3 folds its sums and its sums of squares
+//   one after the other. Outputs are stored 32 bytes a thread where
+//   aligned.
+// - Counts (K1, K3). A chunk whose ring rows hold no non-finite cell of the
 //   domain takes the clipped window's analytic size (a block vote with
 //   __syncthreads_or); otherwise a second vertical fold counts the finite
 //   cells and the horizontal pass sums them the same way.
+//
+// Rounding (K3): every add of its folds is __fadd_rn and its squares
+// __fmul_rn, so nvcc contracts nothing into an FMA; every result is still a
+// direct (2h+1)-term sum, head + core + tail, never a running add and
+// subtract.
 //
 // What bounds it: one f32 read and one f32 write of the field; the halo
 // (2hy / rows of the rows, 2hx / kStripW of the columns) is read again,
@@ -61,8 +68,16 @@ static_assert(kChunk * kStripW / kOut == kStripThreads,
 static_assert(2 * kStripW == kStripThreads, "tw <= kStripW: one vertical "
               "round");
 static_assert(kChunk == 2 * kHalf, "two vertical folds per column");
+static_assert(kOut == kHalf, "fold_half folds kOut outputs");
 
-enum Mode { kSums, kMin, kMax };
+// K1's sums, K2's extrema, K3's sums with explicitly rounded adds
+enum Mode { kSums, kMin, kMax, kVar };
+
+// Planes of kChunk x v_pitch vertical results a block keeps: K2 its
+// extrema, K1 its sums and counts, K3 its sums, sums of squares and counts.
+__host__ __device__ constexpr int result_planes(Mode m) {
+  return m == kVar ? 3 : (m == kSums ? 2 : 1);
+}
 
 __host__ __device__ inline int ceil4(int v) { return (v + 3) & ~3; }
 // floats of a ring row: the tile row plus room for its shift
@@ -78,12 +93,12 @@ __host__ __device__ inline int ring_rows(int hy) { return 2 * kChunk + 2 * hy; }
 __host__ __device__ inline int v_pitch(int bw, int hx) {
   return hx > kHCap ? (bw + 2 * hx) | 1 : ceil4(bw + 2 * kHCap);
 }
-// Bytes of dynamic shared memory: the ring, then one (K2) or two (K1:
-// results and counts) planes of kChunk x v_pitch vertical results.
-inline size_t strip_smem(int bw, int hy, int hx, bool counts) {
+// Bytes of dynamic shared memory: the ring, then `planes` planes of
+// kChunk x v_pitch vertical results (result_planes).
+inline size_t strip_smem(int bw, int hy, int hx, int planes) {
   return sizeof(float) *
          (static_cast<size_t>(ring_rows(hy)) * ring_pitch(bw, hx) +
-          (counts ? 2 : 1) * static_cast<size_t>(kChunk) * v_pitch(bw, hx));
+          static_cast<size_t>(planes) * kChunk * v_pitch(bw, hx));
 }
 
 template <Mode kMode>
@@ -95,7 +110,17 @@ template <Mode kMode>
 __device__ __forceinline__ float combine(float acc, float v) {
   if (kMode == kMin) return fminf(acc, v);
   if (kMode == kMax) return fmaxf(acc, v);
+  if (kMode == kVar) return __fadd_rn(acc, v);
   return acc + v;
+}
+
+// K3's partial result of a cell or a window: the sum and the sum of squares.
+struct Pair {
+  float s, s2;
+};
+
+__device__ __forceinline__ Pair add_rn(Pair a, Pair b) {
+  return {__fadd_rn(a.s, b.s), __fadd_rn(a.s2, b.s2)};
 }
 
 __device__ __forceinline__ void copy16_async(float* dst, const float* src) {
@@ -115,41 +140,28 @@ __device__ __forceinline__ void wait_older_groups() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// Folds a column's rows read(0 .. kHalf + len - 2) into kHalf direct
-// len-term results, output r taking rows r .. r + len - 1: the values
-// (non-finite cells read as the identity) into acc, or with kCounts the
-// finite cells. Where len >= kHalf every output holds the core rows
-// kHalf - 1 .. len - 1, which are folded once; output r is then (head r ..
-// kHalf - 2, folded from the bottom up) with the core, then (tail len ..
-// len + r - 1, folded top down): about 2 kHalf + len operations for the
-// kHalf outputs instead of kHalf len, and still a direct sum of the window
-// (no running add-and-subtract), in another association. Below that, one
-// predicated loop. Returns the number of non-finite cells it read (the
-// NaN padding outside the domain included).
-template <Mode kMode, bool kCounts, class Read>
-__device__ __forceinline__ int fold_half(Read read, int len,
-                                         float (&acc)[kHalf]) {
-  int bad = 0;
-  auto cell = [&](int d) {
-    const float v = read(d);
-    const bool fin = isfinite(v);
-    if (!kCounts && kMode == kSums) bad += !fin;
-    if (kCounts) return fin ? 1.0f : 0.0f;
-    return fin ? v : identity<kMode>();
-  };
-  auto op = [](float a, float b) {
-    return kCounts ? a + b : combine<kMode>(a, b);
-  };
-  const float ident = kCounts ? 0.0f : identity<kMode>();
+// Folds the terms cell(0 .. kHalf + len - 2) of a column into kHalf direct
+// len-term results with `op`, output r taking terms r .. r + len - 1. Where
+// len >= kHalf every output holds the core terms kHalf - 1 .. len - 1,
+// which are folded once; output r is then (head r .. kHalf - 2, folded from
+// the bottom up) with the core, then (tail len .. len + r - 1, folded top
+// down): about 2 kHalf + len operations for the kHalf outputs instead of
+// kHalf len, and still a direct sum of the window (no running
+// add-and-subtract), in another association. Below that, one predicated
+// loop into acc, which the caller sets to `ident`. cell() is called once
+// per term.
+template <class V, class Cell, class Op>
+__device__ __forceinline__ void fold_half(Cell cell, Op op, V ident, int len,
+                                          V (&acc)[kHalf]) {
   if (len >= kHalf) {
-    float head[kHalf];  // head[r]: rows r .. kHalf - 2
+    V head[kHalf];  // head[r]: terms r .. kHalf - 2
     head[kHalf - 1] = ident;
     head[kHalf - 2] = cell(kHalf - 2);
 #pragma unroll
     for (int r = kHalf - 3; r >= 0; --r) head[r] = op(cell(r), head[r + 1]);
-    float core = cell(kHalf - 1);
+    V core = cell(kHalf - 1);
     for (int d = kHalf; d < len; ++d) core = op(core, cell(d));
-    float tail = ident;  // rows len .. len + r - 1
+    V tail = ident;  // terms len .. len + r - 1
 #pragma unroll
     for (int r = 0; r < kHalf; ++r) {
       acc[r] = r == kHalf - 1 ? op(core, tail) : op(op(head[r], core), tail);
@@ -157,36 +169,33 @@ __device__ __forceinline__ int fold_half(Read read, int len,
     }
   } else {
     for (int d = 0; d < len + kHalf - 1; ++d) {
-      const float v = cell(d);
+      const V v = cell(d);
 #pragma unroll
       for (int r = 0; r < kHalf; ++r) {
         if (d >= r && d < r + len) acc[r] = op(acc[r], v);
       }
     }
   }
-  return bad;
 }
 
 // kOut adjacent direct (2HX+1)-term results from registers v (v[c] for
 // tile column c), with fold_half's core / head / tail association where
 // the window is at least kOut wide, else term by term left to right.
-template <Mode kMode, bool kCounts, int HX>
-__device__ __forceinline__ void fold_row_fixed(const float (&v)[kOut + 2 * kHCap],
-                                               float (&res)[kOut]) {
+template <int HX, class Op>
+__device__ __forceinline__ void fold_row_fixed(
+    const float (&v)[kOut + 2 * kHCap], Op op, float ident,
+    float (&res)[kOut]) {
   constexpr int kLen = 2 * HX + 1;
-  auto op = [](float a, float b) {
-    return kCounts ? a + b : combine<kMode>(a, b);
-  };
   if constexpr (kLen >= kOut) {
     float head[kOut];
-    head[kOut - 1] = kCounts ? 0.0f : identity<kMode>();
+    head[kOut - 1] = ident;
     head[kOut - 2] = v[kOut - 2];
 #pragma unroll
     for (int j = kOut - 3; j >= 0; --j) head[j] = op(v[j], head[j + 1]);
     float core = v[kOut - 1];
 #pragma unroll
     for (int d = kOut; d < kLen; ++d) core = op(core, v[d]);
-    float tail = 0.0f;
+    float tail = ident;
 #pragma unroll
     for (int j = 0; j < kOut; ++j) {
       res[j] = j == 0 ? op(head[0], core)
@@ -205,17 +214,18 @@ __device__ __forceinline__ void fold_row_fixed(const float (&v)[kOut + 2 * kHCap
   }
 }
 
-// kOut adjacent direct (2hx+1)-term horizontal results from a row of
-// vertical results (row[c] for tile column c). For hx <= kHCap the row is
-// read by 16-byte loads into registers and folded by the variant for hx;
-// above it, fold_half's shared-core fold reads shared memory once per
-// term, about 2 kOut + 2hx reads for the kOut outputs. The vertical
-// results are finite or the identity, which fold_half keeps as they are;
-// the counts are summed as values.
-template <Mode kMode, bool kCounts>
+// kOut adjacent direct (2hx+1)-term horizontal results, combined as kMode
+// combines (counts: kSums), from a row of vertical results (row[c] for
+// tile column c). For hx <= kHCap the row is read by 16-byte loads into
+// registers and folded by the variant for hx; above it, fold_half's
+// shared-core fold reads shared memory once per term, about 2 kOut + 2hx
+// reads for the kOut outputs. The vertical results are finite or the
+// identity, and are folded as they are.
+template <Mode kMode>
 __device__ __forceinline__ void fold_row(const float* row, int hx,
                                          float (&res)[kOut]) {
-  static_assert(kOut == kHalf, "fold_half folds kOut outputs");
+  auto op = [](float a, float b) { return combine<kMode>(a, b); };
+  const float ident = identity<kMode>();
   if (hx <= kHCap) {
     float v[kOut + 2 * kHCap];
     const float4* row4 = reinterpret_cast<const float4*>(row);
@@ -228,22 +238,21 @@ __device__ __forceinline__ void fold_row(const float* row, int hx,
       v[4 * q + 3] = f.w;
     }
     switch (hx) {
-      case 0: fold_row_fixed<kMode, kCounts, 0>(v, res); break;
-      case 1: fold_row_fixed<kMode, kCounts, 1>(v, res); break;
-      case 2: fold_row_fixed<kMode, kCounts, 2>(v, res); break;
-      case 3: fold_row_fixed<kMode, kCounts, 3>(v, res); break;
-      case 4: fold_row_fixed<kMode, kCounts, 4>(v, res); break;
-      case 5: fold_row_fixed<kMode, kCounts, 5>(v, res); break;
-      case 6: fold_row_fixed<kMode, kCounts, 6>(v, res); break;
-      case 7: fold_row_fixed<kMode, kCounts, 7>(v, res); break;
-      default: fold_row_fixed<kMode, kCounts, kHCap>(v, res); break;
+      case 0: fold_row_fixed<0>(v, op, ident, res); break;
+      case 1: fold_row_fixed<1>(v, op, ident, res); break;
+      case 2: fold_row_fixed<2>(v, op, ident, res); break;
+      case 3: fold_row_fixed<3>(v, op, ident, res); break;
+      case 4: fold_row_fixed<4>(v, op, ident, res); break;
+      case 5: fold_row_fixed<5>(v, op, ident, res); break;
+      case 6: fold_row_fixed<6>(v, op, ident, res); break;
+      case 7: fold_row_fixed<7>(v, op, ident, res); break;
+      default: fold_row_fixed<kHCap>(v, op, ident, res); break;
     }
   } else {
-    constexpr Mode kFold = kCounts ? kSums : kMode;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) res[j] = identity<kFold>();
-    fold_half<kFold, false>([row](int d) { return row[d]; }, 2 * hx + 1,
-                            res);
+    for (int j = 0; j < kOut; ++j) res[j] = ident;
+    fold_half<float>([row](int d) { return row[d]; }, op, ident, 2 * hx + 1,
+                     res);
   }
 }
 
@@ -251,6 +260,7 @@ template <Mode kMode>
 __global__ void __launch_bounds__(kStripThreads, kStripBlocksPerSm)
 strip_kernel(const float* __restrict__ x, float* __restrict__ out, int ny,
              int nx, int hy, int hx, int bw, int rows, int stat) {
+  constexpr bool kCounted = kMode == kSums || kMode == kVar;
   extern __shared__ __align__(16) float smem[];
   const int pitch = ring_pitch(bw, hx);
   const int rr = ring_rows(hy);
@@ -258,7 +268,9 @@ strip_kernel(const float* __restrict__ x, float* __restrict__ out, int ny,
   const int tw = bw + 2 * hx;
   float* ring = smem;
   float* vres = ring + rr * pitch;   // kChunk x vp vertical results
-  float* vcnt = vres + kChunk * vp;  // kChunk x vp vertical counts (K1)
+  float* vres2 = vres + kChunk * vp;  // ... of squares (K3)
+  // kChunk x vp vertical counts (K1, K3): the last plane
+  float* vcnt = vres + (result_planes(kMode) - 1) * kChunk * vp;
 
   const int strips = (nx + bw - 1) / bw;
   const int runs = (ny + rows - 1) / rows;
@@ -315,6 +327,20 @@ strip_kernel(const float* __restrict__ x, float* __restrict__ out, int ny,
       }
     }
   };
+  // column c of fold task (half, c): its rows from the ring, fold row d in
+  // ring row slot0 + d, less rr from d = wrap on
+  auto column = [&](int yc, int task, int& c, int& k0) {
+    const int half = task >= tw;
+    c = task - half * tw;
+    k0 = half * kHalf;
+    const int slot0 = (yc - hy + k0 - y0 + hy) % rr;
+    const int wrap = rr - slot0;
+    const float* col = ring + shift + c + slot0 * pitch;
+    const int back = rr * pitch;
+    return [col, wrap, back, pitch](int d) {
+      return col[d * pitch - (d >= wrap ? back : 0)];
+    };
+  };
 
   const int nchunks = (y1 - y0 + kChunk - 1) / kChunk;
   const int len_y = 2 * hy + 1;
@@ -333,25 +359,47 @@ strip_kernel(const float* __restrict__ x, float* __restrict__ out, int ny,
     // vertical pass: task = (half, tile column), columns fastest
     bool bad = false;
     for (int task = threadIdx.x; task < 2 * tw; task += kStripThreads) {
-      const int half = task >= tw;
-      const int c = task - half * tw;
-      const int k0 = half * kHalf;
-      const int ytop = yc - hy + k0;  // input row of fold row 0
-      // fold row d sits in ring row slot0 + d, less rr from d = wrap on
-      const int slot0 = (ytop - y0 + hy) % rr;
-      const int wrap = rr - slot0;
-      const float* col = ring + shift + c + slot0 * pitch;
-      const int back = rr * pitch;
-      auto read = [&](int d) {
-        return col[d * pitch - (d >= wrap ? back : 0)];
-      };
-      float acc[kHalf];
+      int c, k0;
+      const auto read = column(yc, task, c, k0);
+      int nonfinite = 0;
+      if constexpr (kMode == kVar) {
+        Pair acc[kHalf];
 #pragma unroll
-      for (int r = 0; r < kHalf; ++r) acc[r] = identity<kMode>();
-      const int nonfinite = fold_half<kMode, false>(read, len_y, acc);
-      if (kMode == kSums) {
+        for (int r = 0; r < kHalf; ++r) acc[r] = Pair{0.0f, 0.0f};
+        fold_half<Pair>(
+            [&](int d) {
+              const float v = read(d);
+              const bool fin = isfinite(v);
+              nonfinite += !fin;
+              return fin ? Pair{v, __fmul_rn(v, v)} : Pair{0.0f, 0.0f};
+            },
+            [](Pair a, Pair b) { return add_rn(a, b); }, Pair{0.0f, 0.0f},
+            len_y, acc);
+#pragma unroll
+        for (int r = 0; r < kHalf; ++r) {
+          vres[(k0 + r) * vp + c] = acc[r].s;
+          vres2[(k0 + r) * vp + c] = acc[r].s2;
+        }
+      } else {
+        float acc[kHalf];
+#pragma unroll
+        for (int r = 0; r < kHalf; ++r) acc[r] = identity<kMode>();
+        fold_half<float>(
+            [&](int d) {
+              const float v = read(d);
+              const bool fin = isfinite(v);
+              nonfinite += !fin;
+              return fin ? v : identity<kMode>();
+            },
+            [](float a, float b) { return combine<kMode>(a, b); },
+            identity<kMode>(), len_y, acc);
+#pragma unroll
+        for (int r = 0; r < kHalf; ++r) vres[(k0 + r) * vp + c] = acc[r];
+      }
+      if (kCounted) {
         // the fold read rows ytop .. ytop + kHalf + 2hy - 1 of column c; its
         // NaN padding: every row outside the domain, or all of them
+        const int ytop = yc - hy + k0;
         const int n_rows = kHalf + 2 * hy;
         const int pad = xs + c >= 0 && xs + c < nx
                             ? n_rows - max(0, min(ytop + n_rows, ny) -
@@ -359,28 +407,20 @@ strip_kernel(const float* __restrict__ x, float* __restrict__ out, int ny,
                             : n_rows;
         bad |= nonfinite > pad;
       }
-#pragma unroll
-      for (int r = 0; r < kHalf; ++r) vres[(k0 + r) * vp + c] = acc[r];
     }
     bool counted = false;
-    if (kMode == kSums) {
+    if (kCounted) {
       counted = __syncthreads_or(bad);
       if (counted) {
         for (int task = threadIdx.x; task < 2 * tw; task += kStripThreads) {
-          const int half = task >= tw;
-          const int c = task - half * tw;
-          const int k0 = half * kHalf;
-          const int slot0 = (yc - hy + k0 - y0 + hy) % rr;
-          const int wrap = rr - slot0;
-          const float* col = ring + shift + c + slot0 * pitch;
-          const int back = rr * pitch;
-          auto read = [&](int d) {
-            return col[d * pitch - (d >= wrap ? back : 0)];
-          };
+          int c, k0;
+          const auto read = column(yc, task, c, k0);
           float cnt[kHalf];
 #pragma unroll
           for (int r = 0; r < kHalf; ++r) cnt[r] = 0.0f;
-          fold_half<kMode, true>(read, len_y, cnt);
+          fold_half<float>(
+              [&](int d) { return isfinite(read(d)) ? 1.0f : 0.0f; },
+              [](float a, float b) { return a + b; }, 0.0f, len_y, cnt);
 #pragma unroll
           for (int r = 0; r < kHalf; ++r) vcnt[(k0 + r) * vp + c] = cnt[r];
         }
@@ -397,11 +437,11 @@ strip_kernel(const float* __restrict__ x, float* __restrict__ out, int ny,
       const int valid = min(min(kOut, bw - c0), nx - x0 - c0);
       if (y >= y1 || valid <= 0) continue;
       float res[kOut];
-      fold_row<kMode, false>(vres + k * vp + c0, hx, res);
-      if (kMode == kSums) {
+      fold_row<kMode>(vres + k * vp + c0, hx, res);
+      if (kCounted) {
         float n[kOut];
         if (counted) {
-          fold_row<kMode, true>(vcnt + k * vp + c0, hx, n);
+          fold_row<kSums>(vcnt + k * vp + c0, hx, n);
         } else {
           const int cy = min(y + hy, ny - 1) - max(y - hy, 0) + 1;
           const int gx0 = x0 + c0;
@@ -418,19 +458,38 @@ strip_kernel(const float* __restrict__ x, float* __restrict__ out, int ny,
             }
           }
         }
+        if constexpr (kMode == kVar) {
+          float res2[kOut];
+          fold_row<kVar>(vres2 + k * vp + c0, hx, res2);
 #pragma unroll
-        for (int j = 0; j < kOut; ++j) {
-          float v;
-          if (stat == kStatCount) {
-            v = n[j];
-          } else if (n[j] > 0.0f) {
-            // IEEE division: the plain K4 smooths its indicator planes with
-            // this Mean and must stay bit for bit with the fused K4
-            v = stat == kStatSum ? res[j] : res[j] / fmaxf(n[j], 1.0f);
-          } else {
-            v = NAN;
+          for (int j = 0; j < kOut; ++j) {
+            float v = NAN;
+            if (n[j] > 0.0f) {
+              // Variance = E[x^2] - E[x]^2, unclamped (neighbourhood.cpp:
+              // 211-235); Std is NaN where the rounding left it below 0
+              const float cden = fmaxf(n[j], 1.0f);
+              const float mean = __fdiv_rn(res[j], cden);
+              const float mean2 = __fdiv_rn(res2[j], cden);
+              v = __fsub_rn(mean2, __fmul_rn(mean, mean));
+              if (stat == kStatStd) v = __fsqrt_rn(v);
+            }
+            res[j] = v;
           }
-          res[j] = v;
+        } else {
+#pragma unroll
+          for (int j = 0; j < kOut; ++j) {
+            float v;
+            if (stat == kStatCount) {
+              v = n[j];
+            } else if (n[j] > 0.0f) {
+              // IEEE division: the plain K4 smooths its indicator planes
+              // with this Mean and must stay bit for bit with K4
+              v = stat == kStatSum ? res[j] : res[j] / fmaxf(n[j], 1.0f);
+            } else {
+              v = NAN;
+            }
+            res[j] = v;
+          }
         }
       } else {
 #pragma unroll
@@ -468,7 +527,7 @@ int launch_strip(const float* x, float* out, int planes, int ny, int nx,
       bw % kOut != 0) {
     return -2;
   }
-  const size_t smem = strip_smem(bw, hy, hx, kMode == kSums);
+  const size_t smem = strip_smem(bw, hy, hx, result_planes(kMode));
   const int err = prepare_launch(strip_kernel<kMode>, smem, device);
   if (err != 0) return err;
   const long long blocks = static_cast<long long>((nx + bw - 1) / bw) *

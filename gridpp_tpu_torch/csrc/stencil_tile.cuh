@@ -1,18 +1,8 @@
-// Shared pieces of the neighbourhood stencil kernels (sm_90a).
-//
-// K3 (neighbourhood_var.cu) and K4 (neighbourhood_quantile_fast.cu) work
-// the same way: one block of kThreads threads owns a kBY x kBX patch of
-// output cells, loads the (kBY + 2hy) x (kBX + 2hx) halo tile around it
-// into shared memory, and then runs a vertical and a horizontal window pass
-// over the tile. Cells outside the domain are read as NaN, which every
-// kernel treats as missing: that gives the window clipped at the domain
-// edge without any index arithmetic in the passes. A leading axis of planes
-// (a contiguous (B, Y, X) batch) rides on blockIdx.z.
-//
-// K1 and K2 walk strips instead (stencil_strip.cuh), the member-minor
-// (Y, X, E) stencil K5 has its own tiling (neighbourhood_members.cu), and
-// the wide route (neighbourhood_wide.cu) reads device memory directly; they
-// share the statistic codes and prepare_launch.
+// Shared pieces of the neighbourhood stencil kernels (sm_90a): the
+// statistic codes, the block size of the member-minor (Y, X, E) stencil K5
+// (neighbourhood_members.cu) and prepare_launch, which K1, K2 and K3's strip
+// walk (stencil_strip.cuh), K5 and the wide route (neighbourhood_wide.cu)
+// call before each launch.
 
 #pragma once
 
@@ -23,9 +13,7 @@
 
 namespace stencil {
 
-constexpr int kBY = 32;        // output rows per block
-constexpr int kBX = 64;        // output columns per block
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K5's block
 
 // Statistic values (gridpp_tpu_torch/constants.py, Statistic).
 constexpr int kStatMean = 0;
@@ -35,37 +23,6 @@ constexpr int kStatStd = 50;
 constexpr int kStatVariance = 60;
 constexpr int kStatSum = 70;
 constexpr int kStatCount = 80;
-
-// Halo tile of this block's patch of plane blockIdx.z of a contiguous
-// (planes, ny, nx) field -> `tile` (tile_h x tile_w, row-major);
-// out-of-domain cells are NaN.
-__device__ inline void load_halo_tile(const float* __restrict__ x, int ny,
-                                      int nx, int hy, int hx, int tile_h,
-                                      int tile_w, float* tile) {
-  const float* xb = x + static_cast<long long>(blockIdx.z) * ny * nx;
-  const int y0 = blockIdx.y * kBY - hy;  // absolute row of tile row 0
-  const int x0 = blockIdx.x * kBX - hx;  // absolute column of tile col 0
-  for (int i = threadIdx.x; i < tile_h * tile_w; i += kThreads) {
-    const int r = i / tile_w;
-    const int c = i - r * tile_w;
-    const int gy = y0 + r;
-    const int gx = x0 + c;
-    float v = NAN;
-    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-      v = xb[static_cast<long long>(gy) * nx + gx];
-    }
-    tile[i] = v;
-  }
-}
-
-inline size_t tile_floats(int hy, int hx) {
-  return (kBY + 2 * static_cast<size_t>(hy)) *
-         (kBX + 2 * static_cast<size_t>(hx));
-}
-
-inline dim3 grid_for(int ny, int nx, int planes) {
-  return dim3((nx + kBX - 1) / kBX, (ny + kBY - 1) / kBY, planes);
-}
 
 // What a library has granted each (kernel, device): the device's opt-in
 // shared-memory limit and the largest dynamic shared memory set so far.

@@ -10,20 +10,21 @@ in parallel, as chip_smoke.py runs them) and bound with ctypes:
      replaces ::_minmax_kernel
   K3 neighbourhood_var_cuda            csrc/neighbourhood_var.cu
      replaces ::_var_kernel
-  K4 neighbourhood_quantile_fast_cuda  csrc/neighbourhood_quantile_fast.cu
+  K4 neighbourhood_quantile_fast_cuda  csrc/neighbourhood_wide.cu
      replaces ::_qf_kernel
   K5 neighbourhood_members_cuda        csrc/neighbourhood_members.cu
      replaces ::_member_mean_kernel and ::_member_minmax_kernel
-  wide route of K1-K5                 csrc/neighbourhood_wide.cu
+  wide route of K1-K3 and K5          csrc/neighbourhood_wide.cu
 
-Each kernel has two routes, and `stencil_plan` (Python, so that the CPU
-tests reach it) picks one from the shapes and halfwidths: "fused", the
-kernel's own one-launch kernel, where its shared-memory tile fits a block
-and the halfwidths are at most the measured crossover FUSED_MAX_H (every
-kernel at h=7), else "wide", two launches of csrc/neighbourhood_wide.cu
-through a scratch buffer that the wrapper allocates, which take any
-halfwidth. The fused launches take a plan of
-their own: K1/K2 `strip_plan`, K4 `qf_plan`, K5 `member_plan`.
+`stencil_plan` (Python, so that the CPU tests reach it) picks each call's
+route from the shapes and halfwidths: "fused", the kernel's own one-launch
+kernel, where its shared-memory tile fits a block and the halfwidths are at
+most the measured crossover FUSED_MAX_H (every kernel but K4 at h=7), else
+"wide", two launches of csrc/neighbourhood_wide.cu through a scratch buffer
+that the wrapper allocates, which take any halfwidth. K4 has only the wide
+route: its exact running counts cost the same at every halfwidth and were
+not slower than a one-block kernel at any. The fused launches take a plan
+of their own: K1/K2/K3 `strip_plan`, K5 `member_plan`.
 
 A `*_cuda` wrapper takes only a CUDA tensor and launches its kernel, or
 raises; it counts its calls in `<wrapper>.launches` (one a call, whatever
@@ -58,7 +59,7 @@ __all__ = [
     "neighbourhood_minmax_cuda", "neighbourhood_minmax_plain",
     "neighbourhood_var_cuda", "neighbourhood_var_plain",
     "neighbourhood_quantile_fast_cuda", "qf_lane_bits", "qf_words",
-    "qf_plan", "strip_plan", "strip_smem", "strip_width", "stencil_plan",
+    "strip_plan", "strip_smem", "strip_width", "stencil_plan",
     "wide_scratch",
     "member_plan", "neighbourhood_members", "neighbourhood_members_cuda",
     "neighbourhood_members_plain",
@@ -73,20 +74,17 @@ MEMBER_STATS = MEAN_STATS + MINMAX_STATS
 KERNELS = {"neighbourhood_mean": "nbm_launch",
            "neighbourhood_minmax": "nbx_launch",
            "neighbourhood_var": "nbv_launch",
-           "neighbourhood_quantile_fast": "nbq_launch",
            "neighbourhood_members": "nbk_launch",
            "neighbourhood_wide": "nbw_launch"}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _c_p, _c_i = ctypes.c_void_p, ctypes.c_int
-# nbm_launch and nbx_launch share one signature (K1/K2: with the strip
-# width and run length), nbv_launch takes the same without them
+# nbm_launch, nbx_launch and nbv_launch share one signature (K1/K2/K3: with
+# the strip width and run length)
 _STRIP_ARGS = [_c_p, _c_p] + [_c_i] * 8 + [_c_i, _c_p]
 _ARGTYPES = {"nbm_launch": _STRIP_ARGS, "nbx_launch": _STRIP_ARGS,
-             "nbv_launch": [_c_p, _c_p] + [_c_i] * 6 + [_c_i, _c_p],
-             "nbq_launch": [_c_p, _c_p, _c_i, _c_p, _c_p] + [_c_i] * 8
-             + [_c_i, _c_p],
+             "nbv_launch": _STRIP_ARGS,
              "nbk_launch": [_c_p, _c_p] + [_c_i] * 8 + [_c_i, _c_p],
              "nbw_launch": [_c_p] * 6 + [_c_i, _c_p] + [_c_i] * 7
              + [_c_i, _c_p]}
@@ -99,18 +97,22 @@ SMEM_LIMIT = 232448
 # of the system's) and its SMs (the wrapper reads the device's own count)
 SMEM_PER_SM = 233472
 H100_SMS = 132
-# K1/K2's strip walk (csrc/stencil_strip.cuh): output rows of a chunk, the
-# tile row that one round of a block's threads takes, the largest hx of the
-# register horizontal pass, the outputs of a horizontal task, the blocks an
-# SM keeps in flight (its __launch_bounds__), and the narrowest strip
+# K1/K2/K3's strip walk (csrc/stencil_strip.cuh): output rows of a chunk,
+# the tile row that one round of a block's threads takes, the largest hx of
+# the register horizontal pass, the outputs of a horizontal task, the
+# blocks an SM keeps in flight (its __launch_bounds__), and the narrowest
+# strip
 STRIP_CHUNK, STRIP_W, STRIP_HCAP, STRIP_OUT = 16, 128, 8, 8
 STRIP_BLOCKS_PER_SM, STRIP_MIN_BW = 3, 64
+# planes of vertical results a strip block keeps (result_planes): K1 its
+# sums and counts, K2 its extrema, K3 its sums, sums of squares and counts
+STRIP_PLANES = {"K1": 2, "K2": 1, "K3": 3}
 # The largest halfwidth (hy and hx) at which a one-block kernel beats the
 # wide route on an H100 (tools/torch_route_sweep.py at 2000², K5 with 10
-# members; K4's one-block kernel is the faster wherever it fits).
-FUSED_MAX_H = {"K1": 64, "K2": 60, "K3": 36, "K5": 10}
-# K4's output patch (kBY x kBX, csrc/stencil_tile.cuh)
-QF_BY, QF_BX = 32, 64
+# members).
+FUSED_MAX_H = {"K1": 64, "K2": 60, "K3": 83, "K5": 10}
+# K4's epilogue reads a window's counts as int32 (qf_epilogue.cuh)
+QF_MAX_CELLS = 1 << 31
 # K5's output rows per block (kRows, csrc/neighbourhood_members.cu) and
 # the tile row width it aims at, in floats
 K5_ROWS, K5_WIDTH = 16, 480
@@ -207,27 +209,27 @@ def _ceil4(v: int) -> int:
 
 
 def strip_width(hx: int) -> int:
-    """K1/K2's strip of output columns: the widest multiple of STRIP_OUT
+    """K1/K2/K3's strip of output columns: the widest multiple of STRIP_OUT
     whose tile row (bw + 2hx) fits STRIP_W floats, so each pass takes one
     round of the block's threads (112 at hx=7); at least STRIP_MIN_BW."""
     return max(STRIP_MIN_BW, (STRIP_W - 2 * hx) // STRIP_OUT * STRIP_OUT)
 
 
-def strip_smem(bw: int, hy: int, hx: int, counts: bool) -> int:
-    """Shared memory of one K1/K2 block (csrc/stencil_strip.cuh,
+def strip_smem(bw: int, hy: int, hx: int, planes: int) -> int:
+    """Shared memory of one K1/K2/K3 block (csrc/stencil_strip.cuh,
     strip_smem): a ring of 2 STRIP_CHUNK + 2hy input rows, each bw + 2hx
-    floats plus room for its 16-byte shift, and one (K2) or two (K1:
-    results and counts) planes of STRIP_CHUNK rows of vertical results,
-    each row bw + 2 max(hx, STRIP_HCAP) floats, rounded up to 4 within the
-    cap and to an odd count above it (v_pitch)."""
+    floats plus room for its 16-byte shift, and `planes` (STRIP_PLANES)
+    planes of STRIP_CHUNK rows of vertical results, each row bw + 2
+    max(hx, STRIP_HCAP) floats, rounded up to 4 within the cap and to an
+    odd count above it (v_pitch)."""
     pitch = _ceil4(bw + 2 * hx + 3)
     vp = (bw + 2 * hx) | 1 if hx > STRIP_HCAP else _ceil4(bw + 2 * STRIP_HCAP)
     return 4 * ((2 * STRIP_CHUNK + 2 * hy) * pitch
-                + (2 if counts else 1) * STRIP_CHUNK * vp)
+                + planes * STRIP_CHUNK * vp)
 
 
 class StripPlan(NamedTuple):
-    """K1/K2's launch plan: a block walks `rows` output rows (a multiple
+    """K1/K2/K3's launch plan: a block walks `rows` output rows (a multiple
     of STRIP_CHUNK) of a `bw`-column strip; `blocks` blocks of `smem`
     bytes."""
     bw: int
@@ -236,9 +238,9 @@ class StripPlan(NamedTuple):
     smem: int
 
 
-def _strip_fit(planes, ny, nx, hy, hx, counts, sms):
+def _strip_fit(planes, ny, nx, hy, hx, results, sms):
     bw = strip_width(hx)
-    smem = strip_smem(bw, hy, hx, counts)
+    smem = strip_smem(bw, hy, hx, results)
     if smem > SMEM_LIMIT:
         return None
     per_sm = max(1, min(STRIP_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
@@ -248,51 +250,51 @@ def _strip_fit(planes, ny, nx, hy, hx, counts, sms):
     return StripPlan(bw, rows, strips * -(-ny // rows) * planes, smem)
 
 
-def strip_plan(shape, hy: int, hx: int, counts: bool,
+def strip_plan(shape, hy: int, hx: int, kernel: str,
                sms: int = H100_SMS) -> StripPlan:
-    """K1's (counts) or K2's plan for a (Y, X) or (B, Y, X) field: the
+    """The plan of `kernel` ("K1", "K2" or "K3", which keep STRIP_PLANES
+    planes of vertical results) for a (Y, X) or (B, Y, X) field: the
     strip width from hx (strip_width), and the rows of a run set so that
     the strips x runs x planes blocks make about one wave of `sms` SMs at
     the blocks an SM holds. Raises a "shared memory" ValueError where the
     ring does not fit a block."""
     ny, nx = shape[-2:]
     planes = shape[0] if len(shape) == 3 else 1
-    plan = _strip_fit(planes, ny, nx, hy, hx, counts, sms)
+    plan = _strip_fit(planes, ny, nx, hy, hx, STRIP_PLANES[kernel], sms)
     if plan is None:
         raise ValueError(f"strip_plan: halfwidths ({hy}, {hx}) need more "
                          "shared memory than the device gives one block")
     return plan
 
 
-def _var_smem(hy: int, hx: int) -> int:
-    """K3's shared memory (csrc/neighbourhood_var.cu): its halo tile and
-    three planes of vertical sums."""
-    tw = QF_BX + 2 * hx
-    return 4 * ((QF_BY + 2 * hy) * tw + 3 * QF_BY * tw)
-
-
 class StencilPlan(NamedTuple):
     """A stencil call's route, "fused" (the kernel's one launch) or "wide"
     (csrc/neighbourhood_wide.cu), with the fused launch's own plan
-    (StripPlan for K1/K2, K3's shared-memory bytes, QfPlan, MemberPlan; None
-    on the wide route) and the wide route's scratch: (dtype, elements) of
-    each buffer (empty on the fused route)."""
+    (StripPlan for K1/K2/K3, MemberPlan for K5; None on the wide route)
+    and the wide route's scratch: (dtype, elements) of each buffer (empty
+    on the fused route)."""
     route: str
     fused: object
     scratch: tuple
 
 
-def wide_scratch(kernel: str, shape, stat=None, t: int = 0) -> tuple:
+def wide_scratch(kernel: str, shape, stat=None, t: int = 0,
+                 hy: int | None = None) -> tuple:
     """The wide route's scratch buffers, (dtype, elements) each, in the
     order nbw_launch takes them: f32 sums and int32 counts (K1, K5 sums);
     f32 sums and sums of squares and int32 counts (K3); f32 extrema (K2,
-    K5 Min/Max); t + 1 int32 lane planes (K4)."""
+    K5 Min/Max); K4's vertical window counts of its t + 1 lanes, packed in
+    32-bit words with lanes as wide as min(2hy + 1, Y) needs (qf_lane_bits;
+    csrc/neighbourhood_wide.cu, run_quantile), so K4 needs hy."""
     n = 1
     for d in shape:
         n *= int(d)
     f32, i32 = torch.float32, torch.int32
     if kernel == "K4":
-        return ((i32, (t + 1) * n),)
+        if hy is None:
+            raise ValueError("wide_scratch: K4's scratch needs hy")
+        bits = qf_lane_bits(min(2 * hy + 1, int(shape[-2])))
+        return ((i32, qf_words(t, bits) * n),)
     if kernel == "K3":
         return ((f32, n), (f32, n), (i32, n))
     if int(stat) in MINMAX_STATS:
@@ -309,8 +311,11 @@ def stencil_plan(kernel: str, shape, hy: int, hx: int, stat=None,
     on (Y, X, E) with `stat`; (hy, hx) clipped to the grid. The one-launch
     kernel (its own plan) where its tile fits one block and the
     halfwidths are at most FUSED_MAX_H; else the wide route, which takes
-    any halfwidth. Plans are
-    cached: a serving loop asks for the same one every cycle."""
+    any halfwidth and is K4's only route. K4 raises a ValueError where a
+    clipped window holds 2^31 cells or more (its counts would not fit
+    int32) or its t + 1 lanes' carries would not fit a block's shared
+    memory. Plans are cached: a serving loop asks for the same one every
+    cycle."""
     return _stencil_plan(kernel, tuple(int(d) for d in shape), int(hy),
                          int(hx), None if stat is None else int(stat),
                          int(t), int(sms))
@@ -318,22 +323,40 @@ def stencil_plan(kernel: str, shape, hy: int, hx: int, stat=None,
 
 @functools.lru_cache(maxsize=256)
 def _stencil_plan(kernel, shape, hy, hx, stat, t, sms):
-    if kernel in ("K1", "K2"):
+    if kernel in STRIP_PLANES:
         fused = _strip_fit(shape[0] if len(shape) == 3 else 1,
-                           shape[-2], shape[-1], hy, hx, kernel == "K1", sms)
-    elif kernel == "K3":
-        smem = _var_smem(hy, hx)
-        fused = smem if smem <= SMEM_LIMIT else None
+                           shape[-2], shape[-1], hy, hx, STRIP_PLANES[kernel],
+                           sms)
     elif kernel == "K4":
-        fused = _qf_fit(hy, hx, t)
+        _check_quantile_window(shape, hy, hx, t)
+        fused = None
     elif kernel == "K5":
         fused = _member_fit(shape[1], shape[2], hy, hx, stat)
     else:
         raise ValueError(f"no stencil kernel {kernel!r}")
-    if fused is not None and max(hy, hx) <= FUSED_MAX_H.get(kernel,
-                                                            max(hy, hx)):
+    if fused is not None and max(hy, hx) <= FUSED_MAX_H[kernel]:
         return StencilPlan("fused", fused, ())
-    return StencilPlan("wide", None, wide_scratch(kernel, shape, stat, t))
+    return StencilPlan("wide", None, wide_scratch(kernel, shape, stat, t,
+                                                  hy))
+
+
+def _check_quantile_window(shape, hy, hx, t):
+    """K4's guards (csrc/neighbourhood_wide.cu): the epilogue reads a
+    window's counts as int32, below QF_MAX_CELLS cells, and the wide
+    route's horizontal pass keeps four 32-bit carries a lane (16 (t + 1)
+    bytes) and its scan's 1 KB in shared memory. The counts stay exact
+    integers to there; from 2^24 cells on, their conversion to f32 rounds,
+    as the plain version's f32 window sums do, but not always to the same
+    last bit (ROADMAP F8)."""
+    cells = min(2 * hy + 1, shape[-2]) * min(2 * hx + 1, shape[-1])
+    if cells >= QF_MAX_CELLS:
+        raise ValueError(f"neighbourhood_quantile_fast: a window of {cells} "
+                         f"cells (halfwidths ({hy}, {hx}) on {tuple(shape)}) "
+                         "reaches 2^31, past which its counts do not fit "
+                         "int32")
+    if 16 * (t + 1) + 1024 > SMEM_LIMIT:
+        raise ValueError(f"neighbourhood_quantile_fast: {t} thresholds need "
+                         "more shared memory than the device gives one block")
 
 
 def _launch_wide(x, out, plan, planes, ny, nx, e, hy, hx, stat,
@@ -365,9 +388,8 @@ def _plane_stencil(kernel, wrapper, x, hy, hx, stat):
         _launch_wide(x, out, plan, b, ny, nx, 1, hy, hx, stat)
         wrapper.wide += 1
     else:
-        strip = () if kernel == "K3" else (plan.fused.bw, plan.fused.rows)
         _launch(_PLANE_SOURCES[kernel], x, x.data_ptr(), out.data_ptr(), b,
-                ny, nx, hy, hx, *strip, stat)
+                ny, nx, hy, hx, plan.fused.bw, plan.fused.rows, stat)
     wrapper.launches += 1
     return out
 
@@ -499,56 +521,13 @@ def qf_words(t: int, bits: int) -> int:
     return -(-(t + 1) // (32 // bits))
 
 
-class QfPlan(NamedTuple):
-    """K4's launch plan: `bits`-wide lanes, `words` packed words a cell,
-    `group` words summed together (1, 2 or 4; one pass where group >=
-    words), `pitch` of the vertical sums, `smem` bytes."""
-    bits: int
-    words: int
-    group: int
-    pitch: int
-    smem: int
-
-
-def qf_plan(hy: int, hx: int, t: int) -> QfPlan:
-    """K4's plan for clipped halfwidths (hy, hx) and t thresholds. The
-    block's halo tile (kBY + 2hy) x (kBX + 2hx) floats takes shared memory
-    beside `group` planes of kBY x pitch vertical sums; the plan takes the
-    one pass over the fewest words that hold all of a cell's counts, else
-    the largest group that fits, and an odd pitch (free of bank conflicts)
-    where it fits. Raises a "shared memory" ValueError where not even one
-    word a group fits; that takes every halfwidth a per-threshold count
-    with one plane of vertical counts takes (stencil_plan sends the rest to
-    the wide route)."""
-    plan = _qf_fit(hy, hx, t)
-    if plan is None:
-        raise ValueError(f"neighbourhood_quantile_fast: halfwidths ({hy}, "
-                         f"{hx}) need more shared memory than the device "
-                         "gives one block")
-    return plan
-
-
-def _qf_fit(hy: int, hx: int, t: int):
-    bits = qf_lane_bits((2 * hy + 1) * (2 * hx + 1))
-    words = qf_words(t, bits)
-    tw = QF_BX + 2 * hx
-    # the tile, which the staged outputs (QF_BY x (QF_BX + 1)) overwrite
-    tile = max((QF_BY + 2 * hy) * tw, QF_BY * (QF_BX + 1))
-    for pitch in (tw | 1, tw):
-        groups = [g for g in (1, 2, 4) if g >= words] + [4, 2, 1]
-        for group in groups:
-            smem = 4 * (tile + group * QF_BY * pitch)
-            if smem <= SMEM_LIMIT:
-                return QfPlan(bits, words, group, pitch, smem)
-    return None
-
-
 def neighbourhood_quantile_fast_cuda(x: torch.Tensor, quantile, hy: int,
                                      hx: int, thresholds: torch.Tensor
                                      ) -> torch.Tensor:
-    """Launch K4 on a (Y, X) CUDA tensor with a scalar quantile (a number
-    or a one-element tensor) and (T,) thresholds; returns (Y, X). A
-    non-finite quantile gives NaN everywhere."""
+    """Launch K4 (its two passes in csrc/neighbourhood_wide.cu) on a (Y, X)
+    CUDA tensor with a scalar quantile (a number or a one-element tensor)
+    and (T,) thresholds; returns (Y, X). A non-finite quantile gives NaN
+    everywhere."""
     _check_args(x, hy, hx)
     if x.dim() != 2:
         raise ValueError(f"expected (Y, X), got {tuple(x.shape)}")
@@ -565,15 +544,9 @@ def neighbourhood_quantile_fast_cuda(x: torch.Tensor, quantile, hy: int,
         return out
     ny, nx = x.shape
     plan = stencil_plan("K4", x.shape, hy, hx, t=thr.numel())
-    if plan.route == "wide":
-        _launch_wide(x, out, plan, 1, ny, nx, 1, hy, hx,
-                     int(Statistic.Quantile), thr, q)
-        neighbourhood_quantile_fast_cuda.wide += 1
-    else:
-        qp = plan.fused
-        _launch("neighbourhood_quantile_fast", x, x.data_ptr(),
-                thr.data_ptr(), thr.numel(), q.data_ptr(), out.data_ptr(),
-                ny, nx, hy, hx, qp.bits, qp.words, qp.group, qp.pitch)
+    _launch_wide(x, out, plan, 1, ny, nx, 1, hy, hx, int(Statistic.Quantile),
+                 thr, q)
+    neighbourhood_quantile_fast_cuda.wide += 1
     neighbourhood_quantile_fast_cuda.launches += 1
     return out
 

@@ -4,9 +4,11 @@ one).
 Each kernel is held to its plain PyTorch version on the same card, at the
 bars of tests/test_pallas_stencil.py: K1 and K5's Mean/Sum/Count rtol 1e-5,
 atol 1e-4 (:36-38, :199); K2 and K5's Min/Max bit for bit (order-free);
-K3 rtol 2e-5, atol 2e-3 (:220); K4 bit for bit, NaN positions included,
-ties (:70-85) and the lane-width boundary too. Every kernel's launch
-counter moves by one per launch. The pipelines on the card agree with
+K3 rtol 2e-5, atol 2e-3 (:220), on one plane and on EnSI's ten; K4 (the
+wide route's running and prefix counts) bit for bit, NaN positions
+included, ties (:70-85) and the lane-width boundaries too, within 1e-5 of
+it past 2^24 cells a window, and a window past its int32 guard raises.
+Every kernel's launch counter moves by one per launch. The pipelines on the card agree with
 their CPU runs (the plain versions): Pipeline within 1e-3, EnsiPipeline
 and utem within 2e-3, ebe and ebesc within 1e-3; an EnSI cycle smoothed
 with Mean launches K5 once. The six OI API functions on their device route
@@ -142,12 +144,11 @@ def test_quantile_fast_kernel_matches_plain(dev, q, shape, h, t):
 @pytest.mark.parametrize("shape,h", [((256, 300), 7), ((256, 300), 8),
                                      ((180, 200), 88)])
 def test_quantile_fast_kernel_packed_lanes(dev, shape, h, t):
-    """K4 bit for bit on either side of the 8/16-bit lane boundary (h=7:
-    225 cells, h=8: 289), with thresholds that fill, straddle and overflow
-    its packed words (one pass or streamed groups), unsorted at T=12, and
-    at the largest halfwidth a per-threshold K4 takes (h=88; there the
-    plain version calls K1 on the card, which takes h=88 by its wide
-    route)."""
+    """K4 bit for bit on either side of the 8/16-bit lane boundary of its
+    window counts (h=7: 225 cells; h=8: 289), with thresholds that fill,
+    straddle and overflow its packed words (one pass or streamed groups),
+    unsorted at T=12, and at h=88 (there the plain version calls K1 on the
+    card, which takes h=88 by its wide route too)."""
     x = _field(shape, seed=h + t)
     thr = np.quantile(x[np.isfinite(x)], np.linspace(0, 1, t)).astype(
         np.float32)
@@ -190,7 +191,7 @@ def test_wide_route_matches_plain(dev, stat, shape, h):
     _assert_matches(got, tops._xla_basic(x, h, stat), tol)
 
 
-@pytest.mark.parametrize("stat", list(KERNEL_OF)[:5])
+@pytest.mark.parametrize("stat", list(KERNEL_OF))
 @pytest.mark.parametrize("shape,h", [((1, 500), 3), ((500, 1), 3),
                                      ((1, 1), 2), ((97, 301), 7),
                                      ((33, 129), 9), ((3, 130, 257), 7),
@@ -198,12 +199,13 @@ def test_wide_route_matches_plain(dev, stat, shape, h):
                                      ((70, 2000), 1), ((200, 130), 32),
                                      ((200, 130), 60)])
 def test_strip_kernels_at_edges(dev, stat, shape, h):
-    """The new K1/K2 at ragged strip (X not a multiple of 128 or 4) and row
-    (Y not a multiple of the run or chunk) edges, 1-row and 1-column
-    fields, batched planes, hx above the register cap (9, 32), and the
-    largest halfwidth at which both stay fused (60), on the 280 K field
-    with 10% NaN."""
-    x = torch.as_tensor(_field_280(shape, seed=len(shape) + h), device=dev)
+    """The strip kernels K1/K2/K3 at ragged strip (X not a multiple of 128
+    or 4) and row (Y not a multiple of the run or chunk) edges, 1-row and
+    1-column fields, batched planes, hx above the register cap (9, 32), and
+    the largest halfwidth at which K2 stays fused (60), on the 280 K field
+    with 10% NaN (its anomaly for K3)."""
+    x = torch.as_tensor(_field_280(shape, seed=len(shape) + h), device=dev) \
+        - WIDE_SHIFT[stat]
     wrapper, tol = KERNEL_OF[stat]
     wide = wrapper.wide
     got = tops.neighbourhood(x, h, stat)
@@ -240,9 +242,9 @@ def test_count_at_the_f32_integer_edge(dev):
 
 @pytest.mark.parametrize("t", [1, 5, 11, 33])
 def test_quantile_fast_wide_route(dev, t):
-    """K4 past its one-block tile (h=120) through the wide route, bit for
-    bit with its plain version on the card, NaN positions included; and
-    at a halfwidth clipped to the grid."""
+    """K4 at h=120 (16-bit window counts), bit for bit with its plain
+    version on the card, NaN positions included; and at a halfwidth
+    clipped to the grid."""
     x = _field((300, 420), seed=t)
     thr = np.quantile(x[np.isfinite(x)], np.linspace(0, 1, t)).astype(
         np.float32)
@@ -253,6 +255,90 @@ def test_quantile_fast_wide_route(dev, t):
         got = tops.neighbourhood_quantile_fast(xd, q, h, thrd)
         assert stencil.neighbourhood_quantile_fast_cuda.wide == wide + 1
         _assert_matches(got, tops._quantile_fast_xla(xd, q, h, thrd), None)
+
+
+@pytest.mark.parametrize("nan_frac", [0.1, 0.0])
+@pytest.mark.parametrize("h", [1, 7, 8, 9, stencil.FUSED_MAX_H["K3"]])
+@pytest.mark.parametrize("planes", [1, 10])
+def test_var_strip_kernel_matches_plain(dev, planes, h, nan_frac):
+    """K3 on the strip walk, in one launch on one plane or on EnSI's ten
+    (B, Y, X) planes, up to its crossover (its one-block route), on an
+    anomaly field with and without 10% NaN: within the reference's bar of
+    its plain version, NaN in the same places, for Std and Variance."""
+    rng = np.random.default_rng(h + planes)
+    x = rng.normal(0, 5, (planes, 260, 330)).astype(np.float32)
+    x[rng.random(x.shape) < nan_frac] = np.nan
+    xd = torch.as_tensor(x, device=dev)
+    k3 = stencil.neighbourhood_var_cuda
+    for stat in stencil.VAR_STATS:
+        before, wide = k3.launches, k3.wide
+        got = k3(xd, h, h, stat)
+        torch.cuda.synchronize()
+        assert k3.launches == before + 1 and k3.wide == wide
+        _assert_matches(got, stencil.neighbourhood_var_plain(xd, h, h, stat),
+                        VAR_TOL)
+
+
+@pytest.mark.parametrize("t", [1, 11, 33])
+@pytest.mark.parametrize("h", [8, 120, 300])
+def test_quantile_fast_wide_route_cases(dev, h, t):
+    """K4's wide route (running and prefix counts) at h=8, h=120 and h=300
+    (361,201 cells a window, past 65,535), bit for bit
+    with its plain version on the card: on a field with 10% NaN and an
+    all-NaN region, and on exact cdf ties."""
+    rng = np.random.default_rng(h + t)
+    x = rng.normal(0, 10, (700, 900)).astype(np.float32)
+    x[rng.random(x.shape) < 0.1] = np.nan
+    x[100:300, 200:500] = np.nan
+    thr = np.quantile(x[np.isfinite(x)], np.linspace(0, 1, t)).astype(
+        np.float32)
+    ties = rng.integers(0, 5, (600, 700)).astype(np.float32)
+    ties[4, 7] = np.nan
+    k4 = stencil.neighbourhood_quantile_fast_cuda
+    for field, th, qs in ((x, thr, (0.0, 0.1, 0.5, 0.9, 1.0)),
+                          (ties, np.arange(5, dtype=np.float32),
+                           (float(np.float32(1.0 / 3.0)), 0.25,
+                            float(np.float32(2.0 / 9.0))))):
+        xd, thrd = (torch.as_tensor(field, device=dev),
+                    torch.as_tensor(th, device=dev))
+        for q in qs:
+            wide = k4.wide
+            got = tops.neighbourhood_quantile_fast(xd, q, h, thrd)
+            assert k4.wide == wide + 1
+            _assert_matches(got, tops._quantile_fast_xla(xd, q, h, thrd),
+                            None)
+
+
+def test_quantile_fast_guard_raises(dev):
+    """A window of 2^31 cells or more (46341^2 here, an 8.6 GB field) raises
+    the plan's ValueError before any launch: past it K4's counts would not
+    fit the epilogue's int32."""
+    x = torch.empty((46341, 46341), device=dev)
+    thr = torch.linspace(-1, 1, 11, device=dev)
+    launches = stencil.neighbourhood_quantile_fast_cuda.launches
+    with pytest.raises(ValueError, match="2\\^31"):
+        tops.neighbourhood_quantile_fast(x, 0.5, 23170, thr)
+    assert stencil.neighbourhood_quantile_fast_cuda.launches == launches
+    del x
+
+
+def test_quantile_fast_past_f32_exact_counts(dev):
+    """Past 2^24 cells a window (4097^2 at h=2048) K4 still answers: its
+    counts stay exact integers and only their f32 conversion rounds, as
+    the plain version's f32 window sums do, so the two agree within the
+    reference's 1e-5 (tests/test_pallas_stencil.py:54-67), NaN in the same
+    places. q lies between the cdf values, away from any bracket edge."""
+    rng = np.random.default_rng(24)
+    x = torch.as_tensor(rng.random((4097, 4097)).astype(np.float32),
+                        device=dev)
+    x[:5, :7] = torch.nan
+    thr = torch.tensor([0.25, 0.5, 0.75], device=dev)
+    before = stencil.neighbourhood_quantile_fast_cuda.launches
+    got = tops.neighbourhood_quantile_fast(x, 0.4, 2048, thr)
+    torch.cuda.synchronize()
+    assert stencil.neighbourhood_quantile_fast_cuda.launches == before + 1
+    _assert_matches(got, tops._quantile_fast_xla(x, 0.4, 2048, thr),
+                    dict(rtol=1e-5, atol=1e-5))
 
 
 @pytest.mark.parametrize("stat", stencil.MEMBER_STATS)

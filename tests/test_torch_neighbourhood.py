@@ -330,7 +330,7 @@ def test_wide_halfwidths_match_jax(stat, shape, h):
 @pytest.mark.parametrize("q", [0.1, 0.5, 0.9])
 @pytest.mark.parametrize("shape", [(230, 330), (320, 330)])
 def test_quantile_fast_wide_halfwidth_matches_jax(q, shape):
-    """K4's plain version at h=120, past the 88 its one-block kernel takes,
+    """K4's plain version at h=120, where the card takes its wide route,
     against gridpp_tpu's XLA path (tests/test_pallas_stencil.py:67)."""
     x = _field(shape, seed=120)
     thr = np.quantile(x[np.isfinite(x)],
@@ -354,3 +354,46 @@ def test_members_wide_halfwidth_matches_jax():
             want = np.asarray(jnops._xla_basic(jnp.asarray(x[:, :, k]), 150,
                                                int(stat)))
             np.testing.assert_allclose(got[:, :, k], want, **TOLS[stat])
+
+
+@pytest.mark.parametrize("q", [0.1, 0.5, 0.9])
+@pytest.mark.parametrize("t", [5, 11])
+def test_quantile_fast_past_the_crossover_matches_jax(q, t):
+    """K4's plain version at h=8, where a window's 289 cells no longer fit
+    8-bit count lanes (the card's K4 takes its wide route at every
+    halfwidth), against gridpp_tpu's XLA path and its Pallas kernel in
+    interpret mode (tests/test_pallas_stencil.py:54-67)."""
+    h = 8
+    x = _field((70, 90), seed=h + t)
+    x[20:30, 40:60] = np.nan
+    thr = np.quantile(x[np.isfinite(x)],
+                      np.linspace(0, 1, t)).astype(np.float32)
+    assert stencil.stencil_plan("K4", x.shape, h, h, t=t).route == "wide"
+    got = tops.neighbourhood_quantile_fast(torch.as_tensor(x), q, h,
+                                           torch.as_tensor(thr)).numpy()
+    xla = np.asarray(jnops.neighbourhood_quantile_fast(
+        jnp.asarray(x), q, h, jnp.asarray(thr)))
+    pallas = np.asarray(ps.neighbourhood_quantile_fast(
+        jnp.asarray(x), q, h, jnp.asarray(thr), interpret=True))
+    np.testing.assert_allclose(got, xla, **QF_TOL)
+    np.testing.assert_allclose(got, pallas, **QF_TOL)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(xla))
+
+
+@pytest.mark.parametrize("stat", [Statistic.Std, Statistic.Variance])
+@pytest.mark.parametrize("h", [3, 7])
+def test_var_plain_on_ten_planes_matches_jax(stat, h):
+    """K3's plain version on EnsiPipeline's ten (E, Y, X) member planes of
+    an anomaly field, which the card smooths in one K3 launch, against
+    gridpp_tpu's neighbourhood_var (its Pallas kernel in interpret mode)
+    and its XLA route, plane by plane."""
+    x = _field_280((10, 36, 50), seed=h) - np.float32(280.0)
+    got = _ops(x, h, stat)
+    assert got.shape == x.shape
+    for b in range(x.shape[0]):
+        pallas = np.asarray(ps.neighbourhood_var(jnp.asarray(x[b]), h,
+                                                 int(stat), interpret=True))
+        xla = np.asarray(jnops._xla_basic(jnp.asarray(x[b]), h, int(stat)))
+        for want in (pallas, xla):
+            np.testing.assert_allclose(got[b], want, **VAR_TOL)
+            np.testing.assert_array_equal(np.isnan(got[b]), np.isnan(want))

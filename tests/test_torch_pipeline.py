@@ -236,13 +236,15 @@ def test_statistics_without_a_stencil_raise_on_first_cycle(stat, match):
         pipe(prob["background"], pobs)
 
 
-def test_nan_obs_elevation_matches_plain_oi():
+@pytest.mark.parametrize("candidates", ["every obs", "default"])
+def test_nan_obs_elevation_matches_plain_oi(candidates):
     """ROADMAP F1 pinned in the port: with one NaN obs elevation and a
     vertical structure scale, the tiled resolve and general paths and the
     flat path stay with gridpp_tpu.optimal_interpolation and with the
     port's own (the port pages with index gathers, so the NaN stays in its
     own candidate; gridpp_tpu's tiled path, which pages with one-hot
-    einsums, does not)."""
+    einsums, does not), with a shortlist of every obs and at the default
+    width, 2 x max_points."""
     prob = problem(5, n=60, n_obs=120, elevs=True)
     prob["pelev"] = prob["pelev"].copy()
     prob["pelev"][17] = np.nan
@@ -259,7 +261,9 @@ def test_nan_obs_elevation_matches_plain_oi():
     for tiled, paths in ((True, ("resolve", "general")), (False,
                                                           ("general",))):
         pipe = gt.Pipeline(g2, p2, st, halfwidth=0, max_points=MAX_POINTS,
-                           tiled=tiled, candidates=n_obs, device="cpu")
+                           tiled=tiled, device="cpu",
+                           candidates=n_obs if candidates == "every obs"
+                           else None)
         for path in paths:
             out = pipe.run_device(bg, po, prob["ratios"], path=path).numpy()
             for ref in (plain, own):

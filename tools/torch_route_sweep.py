@@ -3,15 +3,17 @@ halfwidth: the one-block ("fused") kernel and the two-launch wide route
 (gridpp_tpu_torch/csrc/neighbourhood_wide.cu).
 
     python3 tools/torch_route_sweep.py [--halfwidths H,H,...] [--reps N]
+                                       [--kernels K,K,...]
 
-For K1 (Mean), K2 (Max), K3 (Std) and K4 (quantile_fast, T=11, q=0.5) on a
-2000 x 2000 field, and K5 (Mean) on 2000 x 2000 x 10 members, it forces
-each route in turn through ops.stencil's wrappers (stencil_plan replaced
-for the run), checks the two against each other (K1/K5 rtol 1e-5, atol
-1e-4; K2, K4 equal; K3 rtol 2e-5, atol 2e-3), and prints the mean time of
-a few calls by CUDA events, where the fused kernel's tile fits a block
-(K5's: every member in one block), beside the route the package's plan
-picks. Needs a CUDA card.
+For K1 (Mean), K2 (Max) and K3 (Std) on a 2000 x 2000 field, and K5 (Mean)
+on 2000 x 2000 x 10 members, it forces each route in turn through
+ops.stencil's wrappers (stencil_plan replaced for the run), checks the two
+against each other (K1/K5 rtol 1e-5, atol 1e-4; K2 equal; K3 rtol 2e-5,
+atol 2e-3), and prints the mean time of a few calls by CUDA events and, in
+brackets, their device time alone (torch.profiler's CUPTI trace), where
+the fused kernel's tile fits a block (K5's: every member in one block),
+beside the route the package's plan picks. K4 has only the wide route.
+Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -28,23 +30,34 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from gridpp_tpu_torch.ops import stencil  # noqa: E402
 
-STATS = {"K1": 0, "K2": 30, "K3": 50, "K4": None, "K5": 0}
-TOLS = {"K1": (1e-5, 1e-4), "K2": None, "K3": (2e-5, 2e-3), "K4": None,
+STATS = {"K1": 0, "K2": 30, "K3": 50, "K5": 0}
+TOLS = {"K1": (1e-5, 1e-4), "K2": None, "K3": (2e-5, 2e-3),
         "K5": (1e-5, 1e-4)}
 
 
-def fused_plan(kernel, shape, hy, hx, stat, t, sms):
+def fused_plan(kernel, shape, hy, hx, stat, sms):
     """The one-block plan, or None where its tile does not fit."""
-    if kernel in ("K1", "K2"):
+    if kernel in stencil.STRIP_PLANES:
         return stencil._strip_fit(shape[0] if len(shape) == 3 else 1,
                                   shape[-2], shape[-1], hy, hx,
-                                  kernel == "K1", sms)
-    if kernel == "K3":
-        smem = stencil._var_smem(hy, hx)
-        return smem if smem <= stencil.SMEM_LIMIT else None
-    if kernel == "K4":
-        return stencil._qf_fit(hy, hx, t)
+                                  stencil.STRIP_PLANES[kernel], sms)
     return stencil._member_fit(shape[1], shape[2], hy, hx, stat)
+
+
+def device_ms(fn, reps):
+    """Mean device (kernel) time of fn() over reps calls from
+    torch.profiler's CUPTI trace, host overhead excluded (NaN where the
+    trace shows none)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / reps / 1e3 if total else float("nan")
 
 
 def forcing(route):
@@ -52,9 +65,9 @@ def forcing(route):
     def plan(kernel, shape, hy, hx, stat=None, t=0, sms=stencil.H100_SMS):
         if route == "wide":
             return stencil.StencilPlan(
-                "wide", None, stencil.wide_scratch(kernel, shape, stat, t))
+                "wide", None, stencil.wide_scratch(kernel, shape, stat))
         return stencil.StencilPlan(
-            "fused", fused_plan(kernel, shape, hy, hx, stat, t, sms), ())
+            "fused", fused_plan(kernel, shape, hy, hx, stat, sms), ())
     return plan
 
 
@@ -63,6 +76,7 @@ def main():
     ap.add_argument("--halfwidths",
                     default="7,10,11,12,15,20,30,32,35,40,60,80")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--kernels", default="K1,K2,K3,K5")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_route_sweep: needs a CUDA card")
@@ -74,9 +88,6 @@ def main():
     bg = torch.as_tensor(rng.normal(280, 5, (2000, 2000)).astype(np.float32),
                          device=dev)
     anom = bg - 280.0
-    uni = torch.as_tensor(rng.random((2000, 2000)).astype(np.float32),
-                          device=dev)
-    thr = torch.linspace(0, 1, 11, device=dev)
     ens = torch.as_tensor(rng.normal(280, 5, (2000, 2000, 10)).astype(
         np.float32), device=dev)
     calls = {
@@ -86,8 +97,6 @@ def main():
             bg, h, h, 30)),
         "K3": (bg.shape, lambda h: stencil.neighbourhood_var_cuda(
             anom, h, h, 50)),
-        "K4": (uni.shape, lambda h: stencil.neighbourhood_quantile_fast_cuda(
-            uni, 0.5, h, h, thr)),
         "K5": (ens.shape, lambda h: stencil.neighbourhood_members_cuda(
             ens, h, h, 0)),
     }
@@ -96,25 +105,29 @@ def main():
     end = torch.cuda.Event(enable_timing=True)
     sms = stencil._device_sms(dev)
     try:
-        for kernel, (shape, call) in calls.items():
+        for kernel in args.kernels.split(","):
+            shape, call = calls[kernel]
             for h in (int(v) for v in args.halfwidths.split(",")):
                 picked = package_plan(kernel, shape, h, h, STATS[kernel],
-                                      t=11, sms=sms).route
+                                      sms=sms).route
                 times, outs = {}, {}
                 for route in ("fused", "wide"):
                     if route == "fused" and fused_plan(
-                            kernel, shape, h, h, STATS[kernel], 11,
+                            kernel, shape, h, h, STATS[kernel],
                             sms) is None:
                         continue
                     stencil.stencil_plan = forcing(route)
                     outs[route] = call(h)
+                    for _ in range(2):  # warm up the route and the clocks
+                        call(h)
                     torch.cuda.synchronize()
                     start.record()
                     for _ in range(args.reps):
                         call(h)
                     end.record()
                     torch.cuda.synchronize()
-                    times[route] = start.elapsed_time(end) / args.reps
+                    times[route] = (start.elapsed_time(end) / args.reps,
+                                    device_ms(lambda: call(h), args.reps))
                     stencil.stencil_plan = package_plan
                 agree = "fused route does not fit"
                 if "fused" in outs:
@@ -126,7 +139,8 @@ def main():
                                              equal_nan=True))
                              else "DISAGREE")
                 print(f"  {kernel} h={h}: " + ", ".join(
-                    f"{r} {ms:.4f} ms" for r, ms in times.items())
+                    f"{r} {ms:.4f} ms ({dms:.4f})"
+                    for r, (ms, dms) in times.items())
                     + f" ({agree}; the plan picks {picked})", flush=True)
     finally:
         stencil.stencil_plan = package_plan
