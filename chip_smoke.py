@@ -1,5 +1,5 @@
-"""Smoke run of gridpp_tpu_torch's serving, neighbourhood-statistics and
-OI API paths on one CUDA card.
+"""Smoke run of gridpp_tpu_torch's serving, neighbourhood-statistics, OI
+API and downscaling/calibration paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -104,12 +104,34 @@ Run from the root of a checkout. In order it:
    device route, on the shortlist and with two thirds of the obs dropped
    (the starved fallback), against the port's top-level host-pinned
    function (the native C++ solvers on the CPU): max|d| < 1e-2, with the
-   share of cells within 2e-4 printed.
+   share of cells within 2e-4 printed;
+10. gridpp's downscale -> gradient-correct -> calibrate path through the
+   device route (the api modules' functions under the card), with every
+   launch count set to 0 before its driving calls: the MEPS 2.5 km grid's
+   published size, 949 x 739, over 55-62N 5-12E with seeded 0-2000 m
+   relief, its land-area fraction and 24 leads of normal(280, 5)
+   temperature, to phase 5's 2000 x 2000 grid (the same relief with finer
+   detail) and its 10,000 stations. nearest and bilinear Grid -> Grid (3-D)
+   and Grid -> Points; calc_gradient LinearRegression (h=10; exactly five
+   K1 launches, and no other kernel in the phase) and MinMax (h=3) of
+   temperature against elevation; full_gradient with the LR gradient and a
+   laf gradient field, bilinear, all 24 leads; simple_gradient; apply_curve
+   on the 2000 x 2000 output with a shared 101-knot quantile-mapping curve
+   and with per-cell (2000, 2000, 11) curves. Each held against the port's
+   host route (the top-level function): nearest equal, the others rtol
+   1e-6, atol 1e-4; LR's five K1 fields against K1's plain version and its
+   gradient against the plain route on the host at K1's bars, with its max
+   difference to the native route and the cells whose decision (gradient
+   or default) differs from it printed, with and without min_range. Prints
+   the host map builds, the phase's peak device memory and each call's
+   median time of 3 (numpy in and out) beside its device time (kernels and
+   copies apart) and the host route's.
 
 Any failed check raises. The line before the last is a JSON record of the
-kernels (K1-K5; K3's launches those of phase 6's Std cycles and call, K4's
-phase 6's two calls; the wide route of K1, whose launches are phase 5's
-h=100 cycles); the last line is {"ok": true, "device": {...}}.
+kernels (K1-K5; K1's launches those of phase 5's h=7 cycles and phase
+10's LinearRegression call, K3's those of phase 6's Std cycles and call,
+K4's phase 6's two calls; the wide route of K1, whose launches are phase
+5's h=100 cycles); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -649,6 +671,364 @@ def api_phase(gt, dev, grid, points, structure, background, pobs, ratios,
                   and d < API_TOL,
                   f"256^2 {name} ({case} route): card vs host max|d|="
                   f"{d:.3g}, {close:.6f} of cells within {API_CLOSE}")
+
+
+# -- phase 10: downscale, gradient-correct, calibrate -------------------------
+DOWN_TOL = (1e-6, 1e-4)  # rtol, atol: the card route against the host route
+MEPS_SHAPE = (949, 739)  # the MEPS 2.5 km grid's published size
+N_LEAD = 24
+LR_H, MINMAX_H = 10, 3
+# LR against float64, on the cells whose variance K1's bars determine: the
+# card route's error quantiles at most this factor of the host plain route's
+LR_F64_QUANTILES, LR_F64_FACTOR = (0.5, 0.99, 0.999), 2.0
+
+
+def waves(lats, lons, seed, wavelengths, n=4):
+    """A smooth seeded field in [-1, 1] on (lats, lons): n plane waves of
+    each wavelength (degrees), averaged."""
+    rng = np.random.default_rng(seed)
+    z = np.zeros(lats.shape)
+    for wl in wavelengths:
+        for _ in range(n):
+            ky, kx = rng.normal(0, 2 * np.pi / wl, 2)
+            z += np.sin(ky * lats + kx * lons + rng.uniform(0, 2 * np.pi))
+    return z / (n * len(wavelengths))
+
+
+def terrain(lats, lons, fine):
+    """Seeded elevations of 0-2000 m (sea level where they would be below)
+    and the land-area fraction they give, on (lats, lons): the same coarse
+    relief on every grid, with finer detail where fine."""
+    z = 1000 + 1800 * waves(lats, lons, 20, (2.0, 0.7))
+    if fine:
+        z += 150 * waves(lats, lons, 21, (0.08,))
+    elev = np.clip(z, 0, 2000).astype(np.float32)
+    return elev, np.clip(elev / 50.0, 0, 1).astype(np.float32)
+
+
+def lr_float64(base, values, h):
+    """calc_gradient LinearRegression's slope in float64 from summed-area
+    tables of the five moments (window clipped at the edges, missing cells
+    skipped), the default where the variance is 0 or no cell is valid: the
+    yardstick of both f32 routes and the native one."""
+    ok = np.isfinite(base) & np.isfinite(values)
+    x = np.where(ok, base, 0).astype(np.float64)
+    y = np.where(ok, values, 0).astype(np.float64)
+
+    def window_sum(a):
+        c = np.pad(a, ((1, 0), (1, 0))).cumsum(0).cumsum(1)
+        ny, nx = a.shape
+        y0 = np.clip(np.arange(ny) - h, 0, ny)
+        y1 = np.clip(np.arange(ny) + h + 1, 0, ny)
+        x0 = np.clip(np.arange(nx) - h, 0, nx)
+        x1 = np.clip(np.arange(nx) + h + 1, 0, nx)
+        return (c[y1][:, x1] - c[y0][:, x1] - c[y1][:, x0] + c[y0][:, x0])
+
+    n = window_sum(ok.astype(np.float64))
+    nz = np.maximum(n, 1)
+    mx, my = window_sum(x) / nz, window_sum(y) / nz
+    var = window_sum(x * x) / nz - mx * mx
+    cov = window_sum(x * y) / nz - mx * my
+    return np.where((n >= 2) & (var != 0), cov / np.where(var == 0, 1, var),
+                    0.0)
+
+
+def lr_k1_entry(gt, stencil, moments, launches, err):
+    """The `kernels` line's entry of K1 on calc_gradient's LinearRegression
+    path: the five launches of one call on its inputs (moments: (label,
+    tensor, statistic), NaN-free), timed together beside their plain
+    versions and five avg_pool2d calls, with their bound."""
+    k = 2 * LR_H + 1
+    xs = [(x, int(stat)) for _, x, stat in moments]
+
+    def card():
+        return [stencil.neighbourhood_mean_cuda(x, LR_H, LR_H, st)
+                for x, st in xs]
+
+    def plain():
+        return [stencil.neighbourhood_mean_plain(x, LR_H, LR_H, st)
+                for x, st in xs]
+
+    def library():
+        return [F.avg_pool2d(x[None, None], k, 1, LR_H,
+                             count_include_pad=False,
+                             divisor_override=1 if st == int(gt.Sum)
+                             else None)[0, 0] for x, st in xs]
+
+    for (label, _, _), got, want in zip(moments, card(), library()):
+        ok, e = compare(got, want, (K1_RTOL, K1_ATOL))
+        check(ok, f"LR's {label}: the library call computes the same "
+                  f"function (max|d|={e:.3g})")
+    cells = xs[0][0].numel()
+    entry = {
+        "name": "neighbourhood_mean_cuda (calc_gradient LinearRegression: "
+                "4 Mean + 1 Sum)",
+        "route": "cuda",
+        "source": "gridpp_tpu_torch/csrc/neighbourhood_mean.cu",
+        "replaces": f"{PALLAS}:301",
+        "launches": launches, "max_abs_err": err,
+        "ms": event_ms(card), "device_ms": device_ms(card),
+        "plain_ms": event_ms(plain, reps=10), "library_ms": event_ms(library)}
+    # bytes: one f32 read and one f32 write of each of the five fields;
+    # operations: the separable window's adds
+    entry["bound_ms"], entry["bound_by"] = bound_ms(
+        5 * 8 * cells, 5 * 4 * k * cells, F32_OPS_S)
+    dev_ms = entry["device_ms"]
+    print(f"  K1 on the LR path (five launches, {tuple(xs[0][0].shape)}, "
+          f"h={LR_H}): kernel {entry['ms']:.4f} ms (device only "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+          f"plain {entry['plain_ms']:.4f} ms, library "
+          f"call {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
+          f"ms ({entry['bound_by']}), {entry['bound_ms'] / entry['ms']:.3f} "
+          "of the bound", flush=True)
+    return entry
+
+
+def downscale_phase(gt, dev, lats, lons, plats, plons):
+    """Phase 10: the MEPS 2.5 km -> 1 km path through the port's module
+    functions on the card, each call held against the host route. Returns
+    the `kernels` line's entry of K1 on this path (calc_gradient's
+    LinearRegression), with its launches in the phase's driving calls."""
+    from gridpp_tpu_torch.api import curves as tcurves
+    from gridpp_tpu_torch.api import downscaling as tdown
+    from gridpp_tpu_torch.api import gradients as tgrad
+    from gridpp_tpu_torch.api.gradients import lr_bar
+    from gridpp_tpu_torch.ops import stencil
+
+    t0 = time.perf_counter()
+    slats, slons = np.meshgrid(np.linspace(55, 62, MEPS_SHAPE[0]),
+                               np.linspace(5, 12, MEPS_SHAPE[1]),
+                               indexing="ij")
+    selev, slaf = terrain(slats, slons, fine=False)
+    oelev, olaf = terrain(lats, lons, fine=True)
+    src = gt.Grid(slats, slons, selev, slaf)
+    tgt = gt.Grid(lats, lons, oelev, olaf)
+    rng = np.random.default_rng(10)
+    p = plats.size
+    pidx = tgt.nearest_map(plats, plons)
+    pts = gt.Points(plats, plons,
+                    oelev.reshape(-1)[pidx] + rng.normal(0, 20, p),
+                    olaf.reshape(-1)[pidx])
+    # temperature falling 6.5 K a km with height, and noise
+    temp = (288 - 0.0065 * selev + rng.normal(0, 2, (N_LEAD,) + MEPS_SHAPE)
+            ).astype(np.float32)
+    laf_grad = rng.normal(1.5, 0.5, MEPS_SHAPE).astype(np.float32)
+    print(f"  data {time.perf_counter() - t0:.3f} s: source {MEPS_SHAPE} x "
+          f"{N_LEAD} leads, elevations {float(selev.min()):.1f}-"
+          f"{float(selev.max()):.1f} m, target {tgt.size()}, {p} points",
+          flush=True)
+    for name, build in (
+            ("nearest map to the 2000^2 grid", lambda: src.nearest_map(
+                tgt.lats, tgt.lons, cache_obj=tgt)),
+            ("bilinear map to the 2000^2 grid",
+             lambda: tdown._bilinear_map(src, tgt)),
+            ("bilinear map to the points",
+             lambda: tdown._bilinear_map(src, pts))):
+        _, secs = timed(build)
+        print(f"  host map build, {name}: {secs:.3f} s", flush=True)
+    m = tdown._bilinear_map(src, tgt)
+    print(f"  bilinear map to the 2000^2 grid: "
+          f"{sum(a.nbytes for a in vars(m).values()) / 1e6:.1f} MB, "
+          f"{float(m.inside.mean()):.6f} of cells inside", flush=True)
+
+    def on_card(fn):
+        def run():
+            with torch.device(dev):
+                return fn()
+        return run
+
+    # the slice's calls: name -> (module function, its top-level twin, args)
+    calls = {
+        "nearest grid": (tdown.nearest, gt.nearest, (src, tgt, temp)),
+        "bilinear grid": (tdown.bilinear, gt.bilinear, (src, tgt, temp)),
+        "nearest points": (tdown.nearest, gt.nearest, (src, pts, temp)),
+        "bilinear points": (tdown.bilinear, gt.bilinear, (src, pts, temp)),
+        "calc_gradient MinMax": (tgrad.calc_gradient, gt.calc_gradient,
+                                 (selev, temp[0], gt.MinMax, MINMAX_H)),
+    }
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in (stencil.neighbourhood_mean_cuda,
+              stencil.neighbourhood_minmax_cuda,
+              stencil.neighbourhood_var_cuda,
+              stencil.neighbourhood_quantile_fast_cuda,
+              stencil.neighbourhood_members_cuda):
+        w.launches = 0
+    # -- the driving calls, counts from 0 --
+    card = {}
+    lr = on_card(lambda: tgrad.calc_gradient(selev, temp[0],
+                                             gt.LinearRegression, LR_H))()
+    k1 = stencil.neighbourhood_mean_cuda.launches
+    for name, (fn, _, args) in calls.items():
+        card[name] = on_card(lambda: fn(*args))()
+    egrad = lr
+    calls.update({
+        "calc_gradient LinearRegression": (
+            tgrad.calc_gradient, gt.calc_gradient,
+            (selev, temp[0], gt.LinearRegression, LR_H)),
+        "full_gradient": (tgrad.full_gradient, gt.full_gradient,
+                          (src, tgt, temp, egrad, laf_grad, gt.Bilinear)),
+        "simple_gradient": (tgrad.simple_gradient, gt.simple_gradient,
+                            (src, tgt, temp, -0.0065, gt.Bilinear)),
+    })
+    card["calc_gradient LinearRegression"] = lr
+    for name in ("full_gradient", "simple_gradient"):
+        fn, _, args = calls[name]
+        card[name] = on_card(lambda: fn(*args))()
+    down = card["full_gradient"][0]
+    # a shared 101-knot quantile-mapping curve from 101 stations' pairs
+    # (observation = forecast + a warm bias and noise), and per-cell
+    # 11-knot curves: a line through each cell's shifted knots
+    sfc = card["bilinear points"][0, :101]
+    cr, cf = gt.quantile_mapping_curve(
+        sfc + rng.normal(1.0, 1.5, 101).astype(np.float32), sfc)
+    knots = np.linspace(262, 298, 11, dtype=np.float32)
+    shift = rng.normal(0, 2, down.shape).astype(np.float32)
+    pf = knots + shift[..., None]
+    pr = (rng.uniform(0.9, 1.1, down.shape).astype(np.float32)[..., None]
+          * pf + rng.normal(1, 1, down.shape).astype(np.float32)[..., None])
+    calls.update({
+        "apply_curve shared": (tcurves.apply_curve, gt.apply_curve,
+                               (down, cr, cf, gt.OneToOne, gt.MeanSlope)),
+        "apply_curve per cell": (tcurves.apply_curve, gt.apply_curve,
+                                 (down, pr, pf, gt.NearestSlope,
+                                  gt.NearestSlope)),
+    })
+    for name in ("apply_curve shared", "apply_curve per cell"):
+        fn, _, args = calls[name]
+        card[name] = on_card(lambda: fn(*args))()
+    launches = {w.__name__: w.launches for w in (
+        stencil.neighbourhood_mean_cuda, stencil.neighbourhood_minmax_cuda,
+        stencil.neighbourhood_var_cuda,
+        stencil.neighbourhood_quantile_fast_cuda,
+        stencil.neighbourhood_members_cuda)}
+    check(k1 == 5 and launches["neighbourhood_mean_cuda"] == 5
+          and sum(launches.values()) == 5,
+          f"the phase's kernel launches: five K1 (four Mean, one Sum), all "
+          f"in the LinearRegression call ({launches})")
+    print(f"  phase peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+          f"(f32 output of a 2000^2 x {N_LEAD} call: "
+          f"{4 * N_LEAD * 4e6 / 1e6:.0f} MB)", flush=True)
+
+    # -- each call against the host route --
+    host_s = {}
+    for name, (_, host_fn, args) in calls.items():
+        if name == "calc_gradient LinearRegression":
+            continue
+        want, host_s[name] = timed(lambda: host_fn(*args))
+        got = card[name]
+        check(isinstance(got, np.ndarray) and got.shape == want.shape
+              and got.dtype == np.float32 and bool(np.isfinite(got).any()),
+              f"{name}: numpy {got.shape} f32 from the card")
+        if name.startswith("nearest"):
+            check(np.array_equal(got, want, equal_nan=True),
+                  f"{name}: card == host route")
+            continue
+        d = float(np.nanmax(np.abs(got - want)))
+        check(np.array_equal(np.isnan(got), np.isnan(want))
+              and np.allclose(got, want, rtol=DOWN_TOL[0], atol=DOWN_TOL[1],
+                              equal_nan=True),
+              f"{name}: card vs host route max|d|={d:.3g} (rtol "
+              f"{DOWN_TOL[0]}, atol {DOWN_TOL[1]})")
+
+    # -- LinearRegression: K1 on its inputs, the plain route, the native --
+    base = torch.as_tensor(selev, device=dev)
+    vals = torch.as_tensor(temp[0], device=dev)
+    moments = (("mean x", base, gt.Mean), ("mean y", vals, gt.Mean),
+               ("mean xx", base * base, gt.Mean),
+               ("mean xy", base * vals, gt.Mean),
+               ("count", torch.isfinite(base).float(), gt.Sum))
+    k1_err = 0.0
+    for label, x, stat in moments:
+        ok, e = compare(
+            stencil.neighbourhood_mean_cuda(x, LR_H, LR_H, int(stat)),
+            stencil.neighbourhood_mean_plain(x, LR_H, LR_H, int(stat)),
+            (K1_RTOL, K1_ATOL))
+        check(ok, f"LR's K1 {label} ({tuple(x.shape)}, h={LR_H}) vs plain: "
+                  f"max|d|={e:.3g}")
+        k1_err = max(k1_err, e)
+    k1_entry = lr_k1_entry(gt, stencil, moments, k1, k1_err)
+    plain, plain_s = timed(
+        lambda: tgrad.lr_gradient(torch.from_numpy(selev),
+                                  torch.from_numpy(temp[0]), LR_H, 2,
+                                  gt.MV, 0.0).numpy())
+    # the gradient amplifies its moments' rounding by E[xx] / var: held to
+    # K1's bars carried through var and cov (ROADMAP F9), beside the count
+    # of cells past K1's bars applied to the gradient itself
+    bar, det = lr_bar([m.numpy() for m in tgrad.lr_moments(
+        torch.from_numpy(selev), torch.from_numpy(temp[0]), LR_H)],
+        K1_RTOL, K1_ATOL)
+    d = np.abs(lr - plain)
+    own = K1_ATOL + K1_RTOL * np.abs(plain)
+    beyond = d > own
+    check(bool((d <= bar + own)[det].all()),
+          f"calc_gradient LinearRegression h={LR_H}: card vs the host plain "
+          f"route max|d|={float(d.max()):.3g}; {int(beyond.sum())} of "
+          f"{d.size} cells past K1's bars on the gradient itself (max|d| "
+          f"{float(d[beyond].max()) if beyond.any() else 0.0:.3g}), every "
+          f"one of the {int(det.sum())} cells whose variance K1's bars "
+          f"determine within those bars carried through the regression; "
+          f"{int((~det).sum())} cells undetermined (max|d| "
+          f"{float(d[~det].max()) if (~det).any() else 0.0:.3g})")
+    native_lr, host_s["calc_gradient LinearRegression"] = timed(
+        lambda: gt.calc_gradient(selev, temp[0], gt.LinearRegression, LR_H))
+    truth = lr_float64(selev, temp[0], LR_H)
+    dn = np.abs(lr - native_lr)
+    print(f"  LR card vs native (double sums) route: max|d|="
+          f"{float(dn.max()):.6g}, "
+          f"{int((dn > K1_ATOL + K1_RTOL * np.abs(native_lr)).sum())} cells "
+          f"past K1's bars; gradient range {float(native_lr.min()):.6g} to "
+          f"{float(native_lr.max()):.6g}", flush=True)
+    f64 = {}
+    for label, g in (("card", lr), ("host plain", plain),
+                     ("native", native_lr)):
+        e = np.abs(g - truth)
+        f64[label] = np.quantile(e[det], LR_F64_QUANTILES)
+        print(f"  LR {label} route vs float64: max|d|={float(e.max()):.6g} "
+              f"(on the determined cells {float(e[det].max()):.6g}; their "
+              f"quantiles {LR_F64_QUANTILES}: "
+              f"{', '.join(f'{q:.6g}' for q in f64[label])}), "
+              f"{int((e > K1_ATOL + K1_RTOL * np.abs(truth)).sum())} cells "
+              "past K1's bars", flush=True)
+    check(bool((f64["card"] <= LR_F64_FACTOR * f64["host plain"]).all()),
+          f"LR card route vs float64 on the {int(det.sum())} determined "
+          f"cells: its error quantiles {LR_F64_QUANTILES} within "
+          f"{LR_F64_FACTOR}x the host plain route's")
+    for kw in ({}, {"min_range": 50.0}):
+        got = on_card(lambda: tgrad.calc_gradient(
+            selev, temp[0], gt.LinearRegression, LR_H,
+            default_gradient=np.nan, **kw))()
+        want = gt.calc_gradient(selev, temp[0], gt.LinearRegression, LR_H,
+                                default_gradient=np.nan, **kw)
+        flips = int((np.isnan(got) != np.isnan(want)).sum())
+        print(f"  LR decision flips card vs native "
+              f"({kw or 'no min_range'}): {flips} of {got.size} cells "
+              f"({int(np.isnan(want).sum())} cells at the default on the "
+              f"native route)", flush=True)
+    print(f"  LR gradient on the native route: median "
+          f"{float(np.median(native_lr)):.6g} K/m (the field's lapse rate "
+          "-0.0065)", flush=True)
+
+    # -- call times: numpy in and out, wall clock; device time from
+    # torch.profiler, the kernels apart from the host<->device copies --
+    for name, (fn, _, args) in calls.items():
+        run = on_card(lambda: fn(*args))
+        times = [timed(run)[1] for _ in range(3)]
+        # a trace may come back without device events: take a second one
+        by_name = (device_ms(run, reps=3, by_kernel=True)
+                   or device_ms(run, reps=3, by_kernel=True))
+        copy_ms = sum(t for k, t in by_name.items() if "memcpy" in k.lower())
+        kern_ms = sum(by_name.values()) - copy_ms
+        dev_txt = (f"device: kernels {kern_ms:.3f} ms, copies {copy_ms:.3f} "
+                   "ms" if by_name else "device time not measured")
+        print(f"  {name}: median call {statistics.median(times) * 1e3:.3f} "
+              f"ms over 3 ({', '.join(f'{t * 1e3:.3f}' for t in times)} ms),"
+              f" {dev_txt}; host route {host_s[name] * 1e3:.3f} ms (one "
+              "call)", flush=True)
+    print(f"  LR plain route on the host (K1's plain version) "
+          f"{plain_s * 1e3:.3f} ms (one call)", flush=True)
+    return k1_entry
 
 
 def main():
@@ -1260,6 +1640,16 @@ def main():
                   np.float32), ens2, pe2, ratios[inside]))
     print(f"  API phase {time.perf_counter() - t0:.3f} s", flush=True)
 
+    # -- 10. downscale, gradient-correct, calibrate --
+    print(f"[downscale {MEPS_SHAPE[0]}x{MEPS_SHAPE[1]}x{N_LEAD} -> 2000x2000 "
+          f"and {plats.size} points, gradients, curves: device route]",
+          flush=True)
+    del ens_np
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lr_k1 = downscale_phase(gt, dev, lats, lons, plats, plons)
+    print(f"  downscale phase {time.perf_counter() - t0:.3f} s", flush=True)
+
     sources = {"K1": ("neighbourhood_mean", f"{PALLAS}:301"),
                "K2": ("neighbourhood_minmax", f"{PALLAS}:364"),
                "K3": ("neighbourhood_var", f"{PALLAS}:330"),
@@ -1284,6 +1674,8 @@ def main():
         **{key: wide_ms[("K1", 100)][key]
            for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")}})
+    # K1 on the downscale phase's path, with that path's own launches
+    kernels.append(lr_k1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

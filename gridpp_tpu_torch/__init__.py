@@ -1,5 +1,6 @@
 """gridpp_tpu_torch: gridpp_tpu's serving pipelines, optimal interpolation
-API and neighbourhood statistics in PyTorch and CUDA.
+API, neighbourhood statistics, downscaling, elevation gradients and
+calibration in PyTorch and CUDA.
 
 A port of the JAX package gridpp_tpu, which stays the reference. This
 package imports torch, numpy and scipy, never jax; it carries its own
@@ -12,26 +13,49 @@ numpy API (`optimal_interpolation`, `optimal_interpolation_full`,
 `optimal_interpolation_ensi`, `optimal_interpolation_ensi_multi_ebe`,
 `_ebesc`, `_utem`), the neighbourhood statistics on tensors
 (ops/neighbourhood.py) with their CUDA kernels K1-K5 (csrc/*.cu, built with
-nvcc at first launch), and gridpp's numpy neighbourhood API. The top-level
-names follow gridpp_tpu's: the numpy API here, the tensor ops under
-gridpp_tpu_torch.ops.
+nvcc at first launch), gridpp's numpy neighbourhood API, its downscalers
+(`nearest`, `bilinear`, `downscaling`: gathers through index maps built
+once per grid pair) and elevation gradients (`simple_gradient`,
+`full_gradient`, `calc_gradient`, whose LinearRegression on the card is
+five K1 launches), its calibration curves (`apply_curve`,
+`quantile_mapping_curve`, `monotonize_curve`, the metric optimizer), the
+transforms (Identity, Log, BoxCox, StartedBoxCox, Gamma), `KDTree` and
+util.cpp's helpers. The top-level names follow gridpp_tpu's: the numpy API
+here, the tensor ops under gridpp_tpu_torch.ops.
 
 The top-level API functions run on the host (the CPU, with the native C++
-OI solvers), as gridpp_tpu's do. The same functions reach the card through
-their modules, called under the card as torch's default device:
-`with torch.device("cuda"): gridpp_tpu_torch.api.oi.optimal_interpolation(
-...)`. Importing the package initialises no CUDA.
+OI solvers, the LinearRegression gradient and the curves), as gridpp_tpu's
+do. The same functions called through their modules run on the card when
+there is one, as gridpp_tpu's run on its accelerator:
+`gridpp_tpu_torch.api.oi.optimal_interpolation(...)` or
+`gridpp_tpu_torch.api.downscaling.bilinear(...)` (on another card under
+`with torch.device("cuda:1"):`, on the host under
+`gridpp_tpu_torch.api._common.host()`). Importing the package initialises
+no CUDA.
 """
 from .constants import *  # noqa: F401,F403  (enums, constants, MV)
 from .constants import __version__  # noqa: F401
 from .core.grid import Grid  # noqa: F401
+from .core.kdtree import KDTree  # noqa: F401
 from .core.point import Point  # noqa: F401
 from .core.points import Points  # noqa: F401
 from .structure import (  # noqa: F401
     BarnesStructure, CressmanStructure, CrossValidation, LinearStructure,
     MultipleStructure, PowerlawStructure, SoarStructure, StructureFunction,
     ToarStructure)
-from .api.utils import calc_even_quantiles, calc_statistic  # noqa: F401
+from .api.utils import (  # noqa: F401
+    calc_even_quantiles, calc_quantile, calc_statistic, compatible_size,
+    convert_coordinates, get_lower_index, get_upper_index, init_ivec2,
+    init_ivec3, init_vec2, init_vec3, interpolate, is_valid_lat,
+    is_valid_lon, num_missing_values, point_in_rectangle)
+from .api.downscaling import bilinear, downscaling, nearest  # noqa: F401
+from .api.gradients import (  # noqa: F401
+    calc_gradient, full_gradient, full_gradient_debug, simple_gradient)
+from .api.curves import (  # noqa: F401
+    apply_curve, calc_score, get_optimal_threshold, metric_optimizer_curve,
+    monotonize_curve, quantile_mapping_curve)
+from .api.transform import (  # noqa: F401
+    BoxCox, Gamma, Identity, Log, StartedBoxCox, Transform)
 from .api.pipeline import (  # noqa: F401
     EnsiPipeline, MultiEnsiPipeline, Pipeline)
 from .api.neighbourhood import (  # noqa: F401
@@ -59,6 +83,13 @@ for _name, _obj in list(globals().items()):
             and _obj.__module__.startswith("gridpp_tpu_torch.api")):
         globals()[_name] = _pin_host(_obj)
 del _name, _obj
+
+# SWIG-style static-method aliases, as in gridpp's bindings
+KDTree_calc_distance = KDTree.calc_distance
+KDTree_calc_distance_fast = KDTree.calc_distance_fast
+KDTree_calc_straight_distance = KDTree.calc_straight_distance
+KDTree_deg2rad = KDTree.deg2rad
+KDTree_rad2deg = KDTree.rad2deg
 
 
 def warning(message):

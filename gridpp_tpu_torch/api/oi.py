@@ -3,17 +3,18 @@ src/api/oi.cpp).
 
 Host orchestration: validate, flatten, drop the invalid observations, find
 each gridpoint's candidates once, then solve the gridpoints in blocks. The
-route follows torch's default device, read once per call (api/_common.py):
+route follows the API's device, read once per call (api/_common.api_device):
 
 - host (the CPU; the top-level package pins its functions there): the
   threaded native C++ solver (csrc oi_host_solve) for the product-kernel
   structures, the plain torch block solver (ops/oi.oi_gather_block) on CPU
   tensors for the others;
-- device (any other default device): the canonical-shortlist sweep
-  (ops/oi.oi_shortlist_sweep), the selection the serving pipelines use;
-  when a truncated row is starved this cycle, the dense all-obs sweep
-  (ops/oi.oi_dense_sweep) for moderate networks, else the host-candidate
-  block solver on the device. Nothing on this route moves to the CPU.
+- device (the card when there is one, or any other default device): the
+  canonical-shortlist sweep (ops/oi.oi_shortlist_sweep), the selection the
+  serving pipelines use; when a truncated row is starved this cycle, the
+  dense all-obs sweep (ops/oi.oi_dense_sweep) for moderate networks, else
+  the host-candidate block solver on the device. Nothing on this route
+  moves to the CPU.
 
 Device tensors cached on Points objects are keyed on the device, so host
 and device calls in one process never share them.

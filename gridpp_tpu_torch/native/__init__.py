@@ -6,7 +6,9 @@ package's own build directory (see _build.py). The library holds the
 cell-hash spatial index, `pair_rho_host`, whose rho bits make the
 canonical shortlist (ops/canonical.py) identical to gridpp_tpu's, the
 host neighbourhood kernels behind the numpy API (api/neighbourhood.py),
-and the threaded per-gridpoint OI solvers of the OI API's host route
+the fused linear-regression gradient (`calc_gradient_lr`, api/gradients.py),
+the calibration-curve application (`apply_curve`, api/curves.py), and the
+threaded per-gridpoint OI solvers of the OI API's host route
 (`oi_host_solve`, `oi_ensi_host_solve`, `oi_member_host_solve`,
 `oi_utem_host_solve`; api/oi.py, api/oi_ensi.py, api/oi_ensi_multi.py).
 When no compiler is available the callers fall back to scipy, numpy and
@@ -65,6 +67,13 @@ def get_lib():
         lib.nb_brute.argtypes = [c_p, c_i64, c_i64, c_i64, c_i32,
                                  ctypes.c_double, c_i64, c_p]
         lib.nb_meansum.argtypes = [c_p, c_i64, c_i64, c_i64, c_i32, c_p]
+        lib.calc_gradient_lr.argtypes = [c_p, c_p, c_i64, c_i64, c_i64,
+                                         c_i64, ctypes.c_float, c_i32,
+                                         ctypes.c_float, c_p]
+        lib.apply_curve_1d.argtypes = [c_p, c_i64, c_p, c_p, c_i64, c_i32,
+                                       c_i32, c_p]
+        lib.apply_curve_percell.argtypes = [c_p, c_i64, c_p, c_p, c_i64,
+                                            c_i32, c_i32, c_p]
         lib.nb_quantile_fast.argtypes = [c_p, c_i64, c_i64, c_i64, c_p,
                                          c_i64, c_p, ctypes.c_float, c_p]
         lib.index_build.restype = c_p
@@ -214,6 +223,51 @@ def nb_quantile_fast(values: np.ndarray, halfwidth: int,
     lib.nb_quantile_fast(_ptr(v), ny, nx, int(halfwidth), _ptr(thr),
                          thr.size, None if qf is None else _ptr(qf),
                          float(q_scalar), _ptr(out))
+    return out
+
+
+def calc_gradient_lr(base: np.ndarray, values: np.ndarray, halfwidth: int,
+                     min_num: int, min_range: float, use_min_range: bool,
+                     default_gradient: float) -> np.ndarray | None:
+    """Fused windowed linear-regression gradient (calc_gradient.cpp:
+    76-124): the five windowed moments summed in double, the gradient in
+    f32. None when the native engine is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    b = _f32c(base)
+    v = _f32c(values)
+    ny, nx = b.shape
+    out = np.empty((ny, nx), np.float32)
+    lib.calc_gradient_lr(_ptr(b), _ptr(v), ny, nx, int(halfwidth),
+                         int(min_num), float(min_range),
+                         int(bool(use_min_range)), float(default_gradient),
+                         _ptr(out))
+    return out
+
+
+def apply_curve(fcst: np.ndarray, curve_ref: np.ndarray,
+                curve_fcst: np.ndarray, policy_below: int,
+                policy_above: int) -> np.ndarray | None:
+    """apply_curve on the host (curve.cpp:6-133); the curves 1-D (shared)
+    or (..., C) per cell. None when the native engine is unavailable or
+    the per-cell curves do not match fcst's shape."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    f = _f32c(fcst)
+    cr = _f32c(curve_ref)
+    cf = _f32c(curve_fcst)
+    out = np.empty(f.shape, np.float32)
+    if cr.ndim == 1:
+        lib.apply_curve_1d(_ptr(f), f.size, _ptr(cr), _ptr(cf), cr.shape[-1],
+                           int(policy_below), int(policy_above), _ptr(out))
+    else:
+        if cr.shape[:-1] != f.shape:
+            return None
+        lib.apply_curve_percell(_ptr(f), f.size, _ptr(cr), _ptr(cf),
+                                cr.shape[-1], int(policy_below),
+                                int(policy_above), _ptr(out))
     return out
 
 

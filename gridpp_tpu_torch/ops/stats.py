@@ -13,7 +13,7 @@ import torch
 from ..constants import Statistic
 
 __all__ = ["is_valid", "valid_count", "nan_quantile", "nan_statistic",
-           "variance_ddof0"]
+           "variance_ddof0", "interpolate"]
 
 
 def is_valid(x: torch.Tensor) -> torch.Tensor:
@@ -103,3 +103,42 @@ def nan_statistic(x: torch.Tensor, statistic: int, axis: int = -1,
             raise ValueError("Statistic.Quantile requires a quantile level")
         return nan_quantile(x, quantile, axis=axis)
     raise ValueError(f"Cannot compute statistic {statistic}")
+
+
+def interpolate(x: torch.Tensor, xp: torch.Tensor,
+                fp: torch.Tensor) -> torch.Tensor:
+    """gridpp's piecewise-linear interpolation (util.cpp:377-432).
+
+    xp must be sorted. Outside [xp[0], xp[-1]] the edge fp value is used.
+    At a repeated x value (a flat interval) the mean of the interval's two
+    end values is used, unless the interval touches exactly one end of the
+    curve, where the inner end's value is used. x: any shape; xp, fp: 1-D,
+    on x's device."""
+    n = xp.shape[0]
+    if n == 0:
+        return torch.full(x.shape, torch.nan, dtype=torch.float32,
+                          device=x.device)
+    x = x.contiguous()
+    left = torch.searchsorted(xp, x, side="left")
+    right = torch.searchsorted(xp, x, side="right")
+    has_exact = right > left
+    i0 = torch.where(has_exact, left, left - 1)   # first == x, else last < x
+    i1 = torch.where(has_exact, right - 1, right)  # last == x, else first > x
+    i0c = torch.clamp(i0, 0, n - 1)
+    i1c = torch.clamp(i1, 0, n - 1)
+    x0 = xp[i0c]
+    x1 = xp[i1c]
+    y0 = fp[i0c]
+    y1 = fp[i1c]
+    flat = x0 == x1
+    both_edge = (i0 == 0) & (i1 == n - 1)
+    mid = (y0 + y1) / 2
+    y_flat = torch.where(both_edge, mid,
+                         torch.where(i0 == 0, y1,
+                                     torch.where(i1 == n - 1, y0, mid)))
+    dx = torch.where(flat, 1.0, x1 - x0)
+    y_lin = y0 + (y1 - y0) * (x - x0) / dx
+    y = torch.where(flat, y_flat, y_lin)
+    y = torch.where(x > xp[n - 1], fp[n - 1], y)
+    y = torch.where(x < xp[0], fp[0], y)
+    return torch.where(torch.isfinite(x), y, torch.nan)

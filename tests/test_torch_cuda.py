@@ -13,7 +13,12 @@ their CPU runs (the plain versions): Pipeline within 1e-3, EnsiPipeline
 and utem within 2e-3, ebe and ebesc within 1e-3; an EnSI cycle smoothed
 with Mean launches K5 once. The six OI API functions on their device route
 (the module function under the card as default device) stay within 1e-2
-of their host route.
+of their host route. The downscale -> gradient -> calibrate calls on their
+device route match their host route (nearest equal; bilinear, MinMax and
+the curves rtol 1e-6, atol 1e-4), reuse the map's tensors, make no CPU
+tensor before their final copy, and calc_gradient's LinearRegression is
+five K1 launches whose gradient is within K1's bars carried through the
+regression (ROADMAP F9).
 
 This file imports no jax, so it also runs on a machine with the card and
 no JAX installed:
@@ -26,6 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import gridpp_tpu_torch as gt  # noqa: E402
+from gridpp_tpu_torch.api.gradients import lr_bar  # noqa: E402
 from gridpp_tpu_torch.ops import neighbourhood as tops  # noqa: E402
 from gridpp_tpu_torch.ops import stencil  # noqa: E402
 
@@ -668,3 +674,204 @@ def test_api_device_route_on_card(dev, fn, starved, monkeypatch):
         assert isinstance(a, np.ndarray) and a.shape == b.shape
         assert np.isfinite(a).all()
         assert np.abs(a - b).max() < 1e-2, np.abs(a - b).max()
+
+
+def _downscale_problem(seed=14, n_src=(300, 240), n_tgt=2000):
+    """A 300 x 240 source with elevations and lafs over 55-62N 5-12E, the
+    benchmark's 2000 x 2000 target with its own, 500 stations, and (T, Y,
+    X) temperatures with a share missing."""
+    rng = np.random.default_rng(seed)
+    lats, lons = np.meshgrid(np.linspace(55, 62, n_src[0]),
+                             np.linspace(5, 12, n_src[1]), indexing="ij")
+    olats, olons = np.meshgrid(np.linspace(55, 62, n_tgt),
+                               np.linspace(5, 12, n_tgt), indexing="ij")
+    src = gt.Grid(lats, lons,
+                  rng.uniform(0, 2000, lats.shape).astype(np.float32),
+                  rng.uniform(0, 1, lats.shape).astype(np.float32))
+    tgt = gt.Grid(olats, olons,
+                  rng.uniform(0, 2000, olats.shape).astype(np.float32),
+                  rng.uniform(0, 1, olats.shape).astype(np.float32))
+    pts = gt.Points(rng.uniform(54.9, 62.1, 500), rng.uniform(4.9, 12.1, 500),
+                    rng.uniform(0, 2000, 500), rng.uniform(0, 1, 500))
+    vals = rng.normal(280, 5, (3,) + lats.shape).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.02] = np.nan
+    return src, tgt, pts, vals
+
+
+def test_downscalers_on_card(dev):
+    """nearest (equal) and bilinear (rtol 1e-6, atol 1e-4) to the 2000 x
+    2000 grid and to points, through the module functions on the card,
+    against the host route; the second call reuses the map's tensors."""
+    from gridpp_tpu_torch.api import downscaling as tdown
+    src, tgt, pts, vals = _downscale_problem()
+    for target in (tgt, pts):
+        with torch.device(dev):
+            near = tdown.nearest(src, target, vals)
+            bil = tdown.bilinear(src, target, vals)
+        assert np.array_equal(near, gt.nearest(src, target, vals),
+                              equal_nan=True)
+        np.testing.assert_allclose(bil, gt.bilinear(src, target, vals),
+                                   rtol=1e-6, atol=1e-4)
+    cache = src.__dict__["_downscale_maps"][tgt]
+    maps = cache[("bilinear", dev)]
+    assert all(t.device == dev for t in maps)
+    with torch.device(dev):
+        tdown.bilinear(src, tgt, vals[:1])
+    assert cache[("bilinear", dev)] is maps
+
+
+def test_unpinned_module_function_runs_on_card(dev, monkeypatch):
+    """A module function called with no device context runs on the card,
+    as gridpp_tpu's run on its accelerator; the top-level function stays
+    on the host."""
+    from gridpp_tpu_torch.api import downscaling as tdown
+    from gridpp_tpu_torch.ops import downscaling as tops
+    src, tgt, _, vals = _downscale_problem(n_src=(60, 50), n_tgt=200)
+    seen = []
+    real = tops.bilinear_apply
+
+    def record(values, *maps):
+        seen.append((values.device.type, {m.device.type for m in maps}))
+        return real(values, *maps)
+
+    monkeypatch.setattr(tops, "bilinear_apply", record)
+    got = tdown.bilinear(src, tgt, vals)
+    assert seen == [("cuda", {"cuda"})]
+    want = gt.bilinear(src, tgt, vals)
+    assert seen[1:] == [("cpu", {"cpu"})]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+
+
+def _lr_problem(shape=(949, 739), seed=15):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(shape[0]), np.arange(shape[1]),
+                         indexing="ij")
+    z = sum(rng.uniform(0.5, 1) * np.sin(rng.uniform(0.005, 0.05) * yy
+                                         + rng.uniform(0.005, 0.05) * xx
+                                         + rng.uniform(0, 6))
+            for _ in range(6))
+    elev = ((z - z.min()) / (z.max() - z.min()) * 2000).astype(np.float32)
+    temp = (288 - 0.0065 * elev + rng.normal(0, 2, shape)).astype(np.float32)
+    temp[rng.random(shape) < 0.02] = np.nan
+    return elev, temp
+
+
+def test_calc_gradient_lr_on_card_is_five_k1_launches(dev):
+    """LinearRegression on the card: four Mean and one Sum launch of K1,
+    whose five moments are within K1's bars of the same route's plain
+    version on the CPU, and whose gradient is within those bars carried
+    through the regression (ROADMAP F9) wherever they fix the variance."""
+    from gridpp_tpu_torch.api import gradients as tgrad
+    elev, temp = _lr_problem()
+    before = stencil.neighbourhood_mean_cuda.launches
+    with torch.device(dev):
+        got = tgrad.calc_gradient(elev, temp, gt.LinearRegression, 10)
+    assert stencil.neighbourhood_mean_cuda.launches - before == 5
+    both = np.isfinite(elev) & np.isfinite(temp)
+    base, vals = (torch.from_numpy(np.where(both, a, np.nan).astype(
+        np.float32)) for a in (elev, temp))
+    host = tgrad.lr_moments(base, vals, 10)
+    for card, plain in zip(tgrad.lr_moments(base.to(dev), vals.to(dev), 10),
+                           host):
+        _assert_matches(card, plain, TOL)
+    want = tgrad.lr_gradient(base, vals, 10, 2, gt.MV, 0.0).numpy()
+    bar, det = lr_bar([m.numpy() for m in host], **TOL)
+    d = np.abs(got - want)
+    assert (d <= bar + TOL["atol"] + TOL["rtol"] * np.abs(want))[det].all()
+    assert det.mean() > 0.99
+
+
+def test_calc_gradient_minmax_on_card(dev):
+    from gridpp_tpu_torch.api import gradients as tgrad
+    rng = np.random.default_rng(16)
+    base = (rng.integers(0, 5, (300, 260)) * 100).astype(np.float32)
+    vals = rng.normal(280, 5, base.shape).astype(np.float32)
+    base[rng.random(base.shape) < 0.05] = np.nan
+    with torch.device(dev):
+        got = tgrad.calc_gradient(base, vals, gt.MinMax, 3)
+    assert np.array_equal(got, gt.calc_gradient(base, vals, gt.MinMax, 3),
+                          equal_nan=True)
+
+
+@pytest.mark.parametrize("below,above", [("OneToOne", "MeanSlope"),
+                                         ("NearestSlope", "Zero"),
+                                         ("Unchanged", "NearestSlope")])
+def test_apply_curve_on_card(dev, below, above):
+    """apply_curve with a shared 101-knot curve and with per-cell (Y, X,
+    11) curves on the card (ops.curves) against the host route (the
+    native curve): rtol 1e-6, atol 1e-4."""
+    from gridpp_tpu_torch.api import curves as tcurves
+    rng = np.random.default_rng(17)
+    fcst = rng.normal(280, 8, (1000, 1200)).astype(np.float32)
+    fcst[rng.random(fcst.shape) < 0.02] = np.nan
+    ref = rng.normal(281, 7, 5000).astype(np.float32)
+    cr, cf = gt.quantile_mapping_curve(ref, rng.normal(280, 8, 5000),
+                                       np.linspace(0, 1, 101))
+    cf, order = np.sort(cf), np.argsort(cf, kind="stable")
+    cr = cr[order]
+    pf = np.sort(rng.normal(280, 6, fcst.shape + (11,)), axis=-1).astype(
+        np.float32)
+    pr = np.sort(pf + rng.normal(1, 2, pf.shape), axis=-1).astype(
+        np.float32)
+    pb, pa = int(getattr(gt, below)), int(getattr(gt, above))
+    for curve in ((cr, cf), (pr, pf)):
+        with torch.device(dev):
+            got = tcurves.apply_curve(fcst, *curve, pb, pa)
+        want = gt.apply_curve(fcst, *curve, pb, pa)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+
+
+def _cpu_results(fn):
+    """Run fn() and return the names of the torch functions that produced a
+    CPU tensor in it, other than Tensor.cpu (the final numpy copy), and the
+    number of Tensor.cpu calls."""
+    from torch.overrides import TorchFunctionMode
+
+    seen, copies = [], []
+
+    class Watch(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", str(func))
+            if name == "cpu":
+                copies.append(name)
+            else:
+                for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if isinstance(t, torch.Tensor) and t.device.type == "cpu":
+                        seen.append(name)
+            return out
+
+    with Watch():
+        fn()
+    return seen, len(copies)
+
+
+def test_device_route_makes_no_cpu_tensor(dev):
+    """The downscale -> gradient -> calibrate calls on the card make no
+    CPU tensor before their one final copy to the host."""
+    from gridpp_tpu_torch.api import curves as tcurves
+    from gridpp_tpu_torch.api import downscaling as tdown
+    from gridpp_tpu_torch.api import gradients as tgrad
+    src, tgt, pts, vals = _downscale_problem(n_src=(60, 50), n_tgt=200)
+    elev = src.get_elevs()
+    eg = np.full(elev.shape, -0.0065, np.float32)
+    curve = (np.linspace(270, 290, 11).astype(np.float32),
+             np.linspace(268, 292, 11).astype(np.float32))
+    calls = {
+        "nearest": lambda: tdown.nearest(src, pts, vals),
+        "bilinear": lambda: tdown.bilinear(src, tgt, vals),
+        "simple_gradient": lambda: tgrad.simple_gradient(
+            src, tgt, vals, -0.0065, gt.Bilinear),
+        "full_gradient": lambda: tgrad.full_gradient(
+            src, tgt, vals, eg, src.get_lafs() * 0 + 1.0, gt.Bilinear),
+        "calc_gradient LR": lambda: tgrad.calc_gradient(
+            elev, vals[0], gt.LinearRegression, 3),
+        "calc_gradient MinMax": lambda: tgrad.calc_gradient(
+            elev, vals[0], gt.MinMax, 3),
+        "apply_curve": lambda: tcurves.apply_curve(vals[0], *curve, 0, 0),
+    }
+    for name, fn in calls.items():
+        with torch.device(dev):
+            seen, copies = _cpu_results(fn)
+        assert not seen and copies == 1, (name, seen, copies)

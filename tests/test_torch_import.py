@@ -17,6 +17,10 @@ def test_import_pulls_in_no_jax():
             "import gridpp_tpu_torch.api.oi\n"
             "import gridpp_tpu_torch.api.oi_ensi\n"
             "import gridpp_tpu_torch.api.oi_ensi_multi\n"
+            "import gridpp_tpu_torch.api.downscaling\n"
+            "import gridpp_tpu_torch.api.gradients\n"
+            "import gridpp_tpu_torch.api.curves\n"
+            "import gridpp_tpu_torch.api.transform\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
             "                                            'gridpp_tpu.')))\n"
@@ -43,7 +47,20 @@ def test_import_pulls_in_no_jax():
     "optimal_interpolation_full", "optimal_interpolation_ensi",
     "optimal_interpolation_ensi_multi_ebe",
     "optimal_interpolation_ensi_multi_ebesc",
-    "optimal_interpolation_ensi_multi_utem", "warning"])
+    "optimal_interpolation_ensi_multi_utem", "warning",
+    # downscaling, gradients and KDTree
+    "KDTree", "KDTree_calc_distance", "KDTree_calc_distance_fast",
+    "KDTree_calc_straight_distance", "KDTree_deg2rad", "KDTree_rad2deg",
+    "nearest", "bilinear", "downscaling", "simple_gradient",
+    "full_gradient", "full_gradient_debug", "calc_gradient",
+    # calibration, transforms and util.cpp's helpers
+    "apply_curve", "monotonize_curve", "quantile_mapping_curve",
+    "calc_score", "get_optimal_threshold", "metric_optimizer_curve",
+    "Transform", "Identity", "Log", "BoxCox", "StartedBoxCox", "Gamma",
+    "calc_quantile", "compatible_size", "convert_coordinates",
+    "get_lower_index", "get_upper_index", "init_vec2", "init_vec3",
+    "init_ivec2", "init_ivec3", "interpolate", "is_valid_lat",
+    "is_valid_lon", "num_missing_values", "point_in_rectangle"])
 def test_public_names(name):
     import gridpp_tpu_torch
     assert hasattr(gridpp_tpu_torch, name)
