@@ -1,5 +1,6 @@
 """Smoke run of gridpp_tpu_torch's serving, neighbourhood-statistics, OI
-API and downscaling/calibration paths on one CUDA card.
+API, downscaling/calibration paths and the rest of gridpp's numpy API on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -126,12 +127,46 @@ Run from the root of a checkout. In order it:
    the host map builds, the phase's peak device memory and each call's
    median time of 3 (numpy in and out) beside its device time (kernels and
    copies apart) and the host route's.
+11. the rest of gridpp's numpy API through the device route (the api
+   modules' functions under the card), with every launch count set to 0
+   before its driving calls, on phase 5's domain at full size (2000 x 2000
+   with phase 10's relief and its land-area fraction, the 10,000
+   stations, seed 11): neighbourhood_score (a gamma precipitation forecast,
+   60% dry, against the stations' obs, threshold 1 mm, Ets) at h=7 and
+   h=25, exactly one K1 launch on its four indicator planes a call and no
+   other kernel in the phase; neighbourhood_search of temperature with the
+   land-area fraction as the search array, h=7, targets [0.8, 1.0], delta
+   0.1 (its bands printed); local_distribution_correction of the
+   precipitation against the stations' 24 (obs, forecast) pairs,
+   BarnesStructure(10 km), quantiles 0.1-0.9, min_points 5 (K, K x T and
+   the block printed); window on the 4M gridpoints as cases x 24 leads
+   (Sum of 3 trailing, Mean of 5 centred, Max of 5 on the stacked route);
+   downscale_probability and mask_threshold_downscale_consensus (Mean) of
+   a MEPS 949 x 739 x 10-member ensemble to the 2000 x 2000 grid; the
+   eight elementwise diagnostics on 2000 x 2000 fields; smart of MEPS
+   temperature onto its own grid, num=5, BarnesStructure(5 km); and
+   staticcorr_points of the stations against 1,000 knots, max_points 20,
+   BarnesStructure(25 km). Each call's peak device memory; each held
+   against the port's host route (the top-level function) on a 256 x 256
+   cut: equal (window Max, downscale_probability), K1's bars
+   (neighbourhood_score), rtol 1e-5 and atol 1e-5 (1e-2 Pa for the
+   pressures), LDC past rtol/atol 2e-5 of its device route on the CPU on
+   no more cells than that route parts from the native one, and of the
+   native route on at most twice as many (ROADMAP F11); smart's selection
+   margins printed where card and host part at full size; K1 on the (4,
+   2000, 2000)
+   planes against its plain version and avg_pool2d, timed, with its
+   bound; each call's median time of 3 beside its device time and the
+   host route's at full size (their difference printed); the host-only
+   calls (gridding, gridding_nearest, count, distance, fill, fill_missing,
+   doping_square, doping_circle, gamma_inv) timed once.
 
 Any failed check raises. The line before the last is a JSON record of the
 kernels (K1-K5; K1's launches those of phase 5's h=7 cycles and phase
 10's LinearRegression call, K3's those of phase 6's Std cycles and call,
 K4's phase 6's two calls; the wide route of K1, whose launches are phase
-5's h=100 cycles); the last line is {"ok": true, "device": {...}}.
+5's h=100 cycles; K1 on phase 11's neighbourhood_score path, one entry a
+halfwidth); the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -207,25 +242,30 @@ def event_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=20, by_kernel=False):
+def device_ms(fn, reps=20, by_kernel=False, at_least=None):
     """Mean device (kernel) time of fn() over reps calls from
     torch.profiler's CUPTI trace, host overhead excluded; None when the
     trace shows no device time. by_kernel: {kernel name: ms a call}
-    instead."""
+    instead. at_least: a trace below it (a partial one) is taken again, up
+    to three times in all, and None (not measured) when none reaches it."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = {e.key: e.self_device_time_total / reps / 1e3
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA}
-    if by_kernel:
-        return times
-    return sum(times.values()) or None
+    for _ in range(3 if at_least is not None else 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: e.self_device_time_total / reps / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if by_kernel:
+            return times
+        total = sum(times.values()) or None
+        if at_least is None or (total or 0.0) >= at_least:
+            return total
+    return None
 
 
 def bound_ms(nbytes, ops, ops_rate):
@@ -294,6 +334,15 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t
+
+
+def on_card(dev, fn):
+    """fn with dev as torch's default device: an API module function's
+    device route on the card."""
+    def run(*args):
+        with torch.device(dev):
+            return fn(*args)
+    return run
 
 
 def report(name, times):
@@ -507,17 +556,11 @@ def api_phase(gt, dev, grid, points, structure, background, pobs, ratios,
     module_of = {"oi": tapi, "full": tapi, "ensi": tensi, "ebe": tmulti,
                  "ebesc": tmulti, "utem": tmulti}
 
-    def on_card(fn):
-        def run(*args):
-            with torch.device(dev):
-                return fn(*args)
-        return run
-
     n, p, e = grid.size()[0], points.size(), ens_np.shape[2]
     rng = np.random.default_rng(6)
     pback_e = ens_np.reshape(-1, e)[idx]
     pobs_e = (pback_e + rng.normal(0, 1, (p, e))).astype(np.float32)
-    card = {k: on_card(f) for k, f in api_calls(
+    card = {k: on_card(dev, f) for k, f in api_calls(
         grid, points, structure, background, ens_np, ratios, idx,
         module_of).items()}
     rat = torch.as_tensor(ratios, device=dev)
@@ -645,7 +688,7 @@ def api_phase(gt, dev, grid, points, structure, background, pobs, ratios,
     idx2 = g2.nearest_map(pts2.lats, pts2.lons)
     host = api_calls(g2, pts2, st2, sub_bg, ens2, rat2, idx2,
                      dict.fromkeys(API_FUNCS, gt))
-    dev2 = {name: on_card(f) for name, f in api_calls(
+    dev2 = {name: on_card(dev, f) for name, f in api_calls(
         g2, pts2, st2, sub_bg, ens2, rat2, idx2, module_of).items()}
     gap2, gape2 = po2.copy(), pe2.copy()
     drop = np.arange(k) % 3 != 0
@@ -831,12 +874,6 @@ def downscale_phase(gt, dev, lats, lons, plats, plons):
           f"{sum(a.nbytes for a in vars(m).values()) / 1e6:.1f} MB, "
           f"{float(m.inside.mean()):.6f} of cells inside", flush=True)
 
-    def on_card(fn):
-        def run():
-            with torch.device(dev):
-                return fn()
-        return run
-
     # the slice's calls: name -> (module function, its top-level twin, args)
     calls = {
         "nearest grid": (tdown.nearest, gt.nearest, (src, tgt, temp)),
@@ -856,11 +893,11 @@ def downscale_phase(gt, dev, lats, lons, plats, plons):
         w.launches = 0
     # -- the driving calls, counts from 0 --
     card = {}
-    lr = on_card(lambda: tgrad.calc_gradient(selev, temp[0],
-                                             gt.LinearRegression, LR_H))()
+    lr = on_card(dev, lambda: tgrad.calc_gradient(
+        selev, temp[0], gt.LinearRegression, LR_H))()
     k1 = stencil.neighbourhood_mean_cuda.launches
     for name, (fn, _, args) in calls.items():
-        card[name] = on_card(lambda: fn(*args))()
+        card[name] = on_card(dev, lambda: fn(*args))()
     egrad = lr
     calls.update({
         "calc_gradient LinearRegression": (
@@ -874,7 +911,7 @@ def downscale_phase(gt, dev, lats, lons, plats, plons):
     card["calc_gradient LinearRegression"] = lr
     for name in ("full_gradient", "simple_gradient"):
         fn, _, args = calls[name]
-        card[name] = on_card(lambda: fn(*args))()
+        card[name] = on_card(dev, lambda: fn(*args))()
     down = card["full_gradient"][0]
     # a shared 101-knot quantile-mapping curve from 101 stations' pairs
     # (observation = forecast + a warm bias and noise), and per-cell
@@ -896,7 +933,7 @@ def downscale_phase(gt, dev, lats, lons, plats, plons):
     })
     for name in ("apply_curve shared", "apply_curve per cell"):
         fn, _, args = calls[name]
-        card[name] = on_card(lambda: fn(*args))()
+        card[name] = on_card(dev, lambda: fn(*args))()
     launches = {w.__name__: w.launches for w in (
         stencil.neighbourhood_mean_cuda, stencil.neighbourhood_minmax_cuda,
         stencil.neighbourhood_var_cuda,
@@ -996,7 +1033,7 @@ def downscale_phase(gt, dev, lats, lons, plats, plons):
           f"cells: its error quantiles {LR_F64_QUANTILES} within "
           f"{LR_F64_FACTOR}x the host plain route's")
     for kw in ({}, {"min_range": 50.0}):
-        got = on_card(lambda: tgrad.calc_gradient(
+        got = on_card(dev, lambda: tgrad.calc_gradient(
             selev, temp[0], gt.LinearRegression, LR_H,
             default_gradient=np.nan, **kw))()
         want = gt.calc_gradient(selev, temp[0], gt.LinearRegression, LR_H,
@@ -1013,7 +1050,7 @@ def downscale_phase(gt, dev, lats, lons, plats, plons):
     # -- call times: numpy in and out, wall clock; device time from
     # torch.profiler, the kernels apart from the host<->device copies --
     for name, (fn, _, args) in calls.items():
-        run = on_card(lambda: fn(*args))
+        run = on_card(dev, lambda: fn(*args))
         times = [timed(run)[1] for _ in range(3)]
         # a trace may come back without device events: take a second one
         by_name = (device_ms(run, reps=3, by_kernel=True)
@@ -1029,6 +1066,520 @@ def downscale_phase(gt, dev, lats, lons, plats, plons):
     print(f"  LR plain route on the host (K1's plain version) "
           f"{plain_s * 1e3:.3f} ms (one call)", flush=True)
     return k1_entry
+
+
+# -- phase 11: the rest of gridpp's numpy API --------------------------------
+N_TIMES = 24             # (obs, forecast) pairs a station; window's leads
+N_MEMBERS = 10
+SLICE_CUT = 256          # the cut on which the card meets the host route
+SMART_CUT = (128, 128)   # smart's cut, onto itself
+LDC_HOST_CUT = 500       # LDC's host route is timed on this cut
+MEPS_CUT = (130, 110)    # the MEPS rows and columns over the 256^2 cut
+SCORE_HS = (7, 25)
+N_KNOTS = 1000
+# rtol, atol of the card route against the host route: the parity tests'
+# bars (tests/test_torch_api_*.py); None: equal
+SLICE_BAR = (1e-5, 1e-5)
+PA_BAR = (1e-5, 1e-2)     # pressures in Pa (~1e5)
+# LDC (ROADMAP F11): where a pair of small rho sits between two curve
+# points, the interpolation divides by their tiny quantile step, and any
+# two routes whose rho or sums differ in the last bits part past
+# tests/test_ldc.py:155's bar there (gridpp_tpu's own two routes too).
+# The card's rho may differ from the CPU's by LDC_RHO_ATOL (exp's last
+# bits; 16 ulp at 1); on the card's rho, the CPU's device route meets the
+# card at the bar on every cell. The two host routes, the device route on
+# the CPU and the native one, part on some cells of these inputs; the card
+# route may part from the native route on at most LDC_NATIVE_FACTOR times
+# as many
+LDC_BAR = (2e-5, 2e-5)
+LDC_RHO_ATOL = 1e-6
+LDC_NATIVE_FACTOR = 2.0
+SCORE_BAR = (K1_RTOL, K1_ATOL)
+
+
+def precip(rng, shape, dry=0.6):
+    """Seeded precipitation in mm: gamma(0.8, 3) amounts, a share dry."""
+    x = rng.gamma(0.8, 3.0, shape).astype(np.float32)
+    x[rng.random(shape) < dry] = 0.0
+    return x
+
+
+def max_diff(got, want):
+    """(max |got - want| where both are finite, NaN in the same places)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    same = bool(np.array_equal(np.isnan(got), np.isnan(want)))
+    d = np.abs(got - want)
+    d = d[np.isfinite(d)]
+    return (float(d.max()) if d.size else 0.0), same
+
+
+def agrees(got, want, bar):
+    """got and want alike: NaN in the same places, and equal (bar None) or
+    within (rtol, atol) elsewhere."""
+    if bar is None:
+        return bool(np.array_equal(got, want, equal_nan=True))
+    return bool(np.allclose(got, want, rtol=bar[0], atol=bar[1],
+                            equal_nan=True)) and max_diff(got, want)[1]
+
+
+def bar_text(bar):
+    return "equal" if bar is None else f"rtol {bar[0]}, atol {bar[1]}"
+
+
+def past_bar(got, want, bar):
+    """The cells of got past (rtol, atol) of want."""
+    return int((~np.isclose(got, want, rtol=bar[0], atol=bar[1],
+                            equal_nan=True)).sum())
+
+
+class RhoOn:
+    """A structure whose corr_background_torch is evaluated on dev and
+    handed back on the caller's device: the CPU's route then runs on the
+    card's rho bits. max_diff: the largest |rho on dev - rho on the
+    caller's device| it saw."""
+
+    def __init__(self, structure, dev):
+        self.structure, self.dev, self.max_diff = structure, dev, 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.structure, name)
+
+    def corr_background_torch(self, p1, p2):
+        own = self.structure.corr_background_torch(p1, p2)
+        rho = self.structure.corr_background_torch(
+            *({k: v.to(self.dev) for k, v in p.items()} for p in (p1, p2)))
+        rho = rho.to(own.device)
+        if rho.numel():
+            self.max_diff = max(self.max_diff,
+                                float((rho - own).abs().max()))
+        return rho
+
+
+def ldc_on_cpu(args, rho_dev=None):
+    """local_distribution_correction's device route on the CPU: the card
+    route's algorithm, on the CPU's rho, or on rho_dev's (RhoOn). Returns
+    (out, max |rho_dev's rho - the CPU's|, 0 without rho_dev)."""
+    from gridpp_tpu_torch.api import ldc as tldc
+    from gridpp_tpu_torch.api import oi as toi
+    grid, bg, pts, pobs, pbg, structure, minq, maxq, min_points = args
+    if rho_dev is not None:
+        structure = RhoOn(structure, rho_dev)
+    bpoints = grid.to_points()
+    cand, mask = toi._candidates(bpoints, pts, structure.localization_np(
+        bpoints.lats, bpoints.lons), 0)
+    out = tldc._ldc_device(
+        bpoints, pts, structure, bg.reshape(-1), cand, mask, pobs, pbg, minq,
+        maxq, min_points, torch.device("cpu")).reshape(bg.shape)
+    return out, getattr(structure, "max_diff", 0.0)
+
+
+def smart_margins(grid, structure, num, cells):
+    """For smart's output cells (flat indices) on grid onto itself: the
+    gap between the num-th and the (num+1)-th highest rho of each cell's
+    candidates on the host route (the CPU's f32 structure), relative to
+    the num-th: the margin its selection has."""
+    from gridpp_tpu_torch.api import oi as toi
+    from gridpp_tpu_torch.api import search as tsearch
+    pts = grid.to_points()
+    cand, mask = toi._candidates(pts, pts, structure.localization_np(
+        pts.lats, pts.lons), num)
+    cpu = torch.device("cpu")
+    f = tsearch._field_tensors(pts, structure, cpu)
+    rows = torch.as_tensor(np.asarray(cells))
+    c = torch.as_tensor(cand[cells]).long()
+    rho = structure.corr_torch({k: v[rows, None] for k, v in f.items()},
+                               {k: v[c] for k, v in f.items()})
+    rho = torch.where(torch.as_tensor(mask[cells]), rho, -torch.inf)
+    top = torch.sort(rho, dim=1, descending=True).values
+    return ((top[:, num - 1] - top[:, num]) / top[:, num - 1]).numpy()
+
+
+def score_k1_entry(gt, stencil, planes, h, launches):
+    """The `kernels` line's entry of K1 on neighbourhood_score's path at
+    halfwidth h: one launch on the (4, Y, X) indicator planes, against its
+    plain version and avg_pool2d (the planes hold no NaN), with its
+    bound."""
+    mean = int(gt.Mean)
+    k = 2 * h + 1
+
+    def card():
+        return stencil.neighbourhood_mean_cuda(planes, h, h, mean)
+
+    def plain():
+        return stencil.neighbourhood_mean_plain(planes, h, h, mean)
+
+    def library():
+        return F.avg_pool2d(planes[:, None], k, 1, h,
+                            count_include_pad=False)[:, 0]
+
+    ok, err = compare(card(), plain(), SCORE_BAR)
+    check(ok, f"neighbourhood_score's K1, {tuple(planes.shape)} h={h}, vs "
+              f"plain: max|d|={err:.3g}")
+    ok, e = compare(card(), library(), SCORE_BAR)
+    check(ok, f"neighbourhood_score's K1 h={h}: the library call computes "
+              f"the same function (max|d|={e:.3g})")
+    cells = planes.numel()
+    entry = {
+        "name": f"neighbourhood_mean_cuda (neighbourhood_score: 4 "
+                f"indicator planes, Mean h={h})",
+        "route": "cuda",
+        "source": "gridpp_tpu_torch/csrc/neighbourhood_mean.cu",
+        "replaces": f"{PALLAS}:301",
+        "launches": launches, "max_abs_err": err, "ms": event_ms(card)}
+    # one launch a call, back to back: a trace far below the event time
+    # is a partial one, taken again (and not measured if it stays so)
+    entry.update(device_ms=device_ms(card, at_least=0.5 * entry["ms"]),
+                 plain_ms=event_ms(plain, reps=5),
+                 library_ms=event_ms(library))
+    # bytes: one f32 read and one f32 write of the four planes;
+    # operations: the separable window's adds of the sums and counts, at
+    # the fewest terms a cell and pass that computes the function: the
+    # direct window's 2h+1, or the shared-core fold's (phase 5's wide
+    # bound)
+    n_w = min(k, (2 * WIDE_RUN + 2 * h) / WIDE_RUN)
+    entry["bound_ms"], entry["bound_by"] = bound_ms(
+        8 * cells, 4 * n_w * cells, F32_OPS_S)
+    dev_ms = entry["device_ms"]
+    print(f"  K1 on neighbourhood_score's planes {tuple(planes.shape)}, h={h}"
+          f": kernel {entry['ms']:.4f} ms (device only "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+          f"plain {entry['plain_ms']:.4f} ms, library call "
+          f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}), {entry['bound_ms'] / entry['ms']:.3f} of "
+          "the bound", flush=True)
+    return entry
+
+
+def slice_data(gt, lats, lons, plats, plons, rng):
+    """Phase 11's objects and fields on the grid (lats, lons), with its
+    points at (plats, plons) and the MEPS grid over the same domain."""
+    elev, laf = terrain(lats, lons, fine=True)
+    p = plats.size
+    grid = gt.Grid(lats, lons, elev, laf)
+    pidx = grid.nearest_map(plats, plons)
+    pts = gt.Points(plats, plons,
+                    elev.reshape(-1)[pidx] + rng.normal(0, 20, p),
+                    laf.reshape(-1)[pidx])
+    shape = lats.shape
+    temp = (288 - 0.0065 * elev + rng.normal(0, 2, shape)).astype(
+        np.float32)
+    slats, slons = np.meshgrid(np.linspace(55, 62, MEPS_SHAPE[0]),
+                               np.linspace(5, 12, MEPS_SHAPE[1]),
+                               indexing="ij")
+    selev, slaf = terrain(slats, slons, fine=False)
+    # smart's grid: MEPS's published size and spacing (~2.5 km: 0.0225 deg
+    # of latitude, 0.045 deg of longitude, 2.5 km at 60N), 52-73N 0-33E
+    mlats, mlons = np.meshgrid(52 + 0.0225 * np.arange(MEPS_SHAPE[0]),
+                               0.045 * np.arange(MEPS_SHAPE[1]),
+                               indexing="ij")
+    melev, mlaf = terrain(mlats, mlons, fine=False)
+    d = dict(
+        grid=grid, pts=pts, elev=elev, laf=laf, temp=temp,
+        fc=precip(rng, shape), obs=precip(rng, (p,)),
+        pobs=precip(rng, (N_TIMES, p)), pbg=precip(rng, (N_TIMES, p)),
+        hourly=precip(rng, (lats.size, N_TIMES)),
+        meps=gt.Grid(slats, slons, selev, slaf),
+        smart=gt.Grid(mlats, mlons, melev, mlaf),
+        mtemp=(288 - 0.0065 * melev + rng.normal(0, 2, MEPS_SHAPE)).astype(
+            np.float32),
+        ens=[precip(rng, MEPS_SHAPE + (N_MEMBERS,)) for _ in range(3)],
+        thr=np.full(shape, 1.0, np.float32),
+        rh=rng.uniform(0.05, 1.0, shape).astype(np.float32),
+        td=(temp - rng.uniform(0, 10, shape)).astype(np.float32),
+        ps=(101325 * np.exp(-elev / 8000.0)).astype(np.float32),
+        u=rng.normal(0, 6, shape).astype(np.float32),
+        v=rng.normal(0, 6, shape).astype(np.float32),
+        knots=gt.Points(rng.uniform(55, 62, N_KNOTS),
+                        rng.uniform(5, 12, N_KNOTS), np.zeros(N_KNOTS),
+                        np.zeros(N_KNOTS)))
+    d["zeros"] = np.zeros(shape, np.float32)
+    d["no_td"] = np.full(shape, np.nan, np.float32)
+    return d
+
+
+def slice_cut(gt, d, m):
+    """d on the grid's first m x m cells, the points inside them, the MEPS
+    cut over them, and smart's MEPS cut."""
+    lats, lons = d["grid"].get_lats(), d["grid"].get_lons()
+    pts = d["pts"]
+    inside = ((pts.get_lats() <= lats[m - 1, 0])
+              & (pts.get_lons() <= lons[0, m - 1]))
+    meps = d["meps"]
+
+    def sub(g, shape):
+        return gt.Grid(*(a[:shape[0], :shape[1]] for a in (
+            g.get_lats(), g.get_lons(), g.get_elevs(), g.get_lafs())))
+
+    c = {k: v[:m, :m] for k, v in d.items()
+         if isinstance(v, np.ndarray) and v.shape == lats.shape}
+    c.update(
+        grid=sub(d["grid"], (m, m)),
+        pts=gt.Points(*(a[inside] for a in (
+            pts.get_lats(), pts.get_lons(), pts.get_elevs(),
+            pts.get_lafs()))),
+        obs=d["obs"][inside], pobs=d["pobs"][:, inside],
+        pbg=d["pbg"][:, inside], hourly=d["hourly"][:m * m],
+        meps=sub(meps, MEPS_CUT),
+        ens=[e[:MEPS_CUT[0], :MEPS_CUT[1]] for e in d["ens"]],
+        smart=sub(d["smart"], SMART_CUT),
+        mtemp=d["mtemp"][:SMART_CUT[0], :SMART_CUT[1]], knots=d["knots"])
+    return c
+
+
+def slice_calls(gt, d, structures):
+    """name -> (api module, function name, args, bar) on the data d."""
+    from gridpp_tpu_torch.api import diagnostics as tdiag
+    from gridpp_tpu_torch.api import ldc as tldc
+    from gridpp_tpu_torch.api import masking as tmask
+    from gridpp_tpu_torch.api import search as tsearch
+    from gridpp_tpu_torch.api import verif as tverif
+    from gridpp_tpu_torch.api import window_api as twin
+    b5, b10, b25 = structures
+    calls = {
+        f"neighbourhood_score h={h}": (
+            tverif, "neighbourhood_score",
+            (d["grid"], d["pts"], d["fc"], d["obs"], h, gt.Ets, 1.0),
+            SCORE_BAR) for h in SCORE_HS}
+    calls.update({
+        "neighbourhood_search h=7": (
+            tsearch, "neighbourhood_search",
+            (d["temp"], d["laf"], 7, 0.8, 1.0, 0.1), SLICE_BAR),
+        "local_distribution_correction": (
+            tldc, "local_distribution_correction",
+            (d["grid"], d["fc"], d["pts"], d["pobs"], d["pbg"], b10, 0.1,
+             0.9, 5), LDC_BAR),
+        "window Sum 3 before": (twin, "window",
+                                (d["hourly"], 3, gt.Sum, True), SLICE_BAR),
+        "window Mean 5": (twin, "window", (d["hourly"], 5, gt.Mean),
+                          SLICE_BAR),
+        "window Max 5": (twin, "window", (d["hourly"], 5, gt.Max), None),
+        "downscale_probability": (
+            tmask, "downscale_probability",
+            (d["meps"], d["grid"], d["ens"][0], d["thr"], gt.Geq), None),
+        "mask_threshold_downscale_consensus": (
+            tmask, "mask_threshold_downscale_consensus",
+            (d["meps"], d["grid"], *d["ens"], d["thr"], gt.Geq, gt.Mean),
+            SLICE_BAR),
+        "dewpoint": (tdiag, "dewpoint", (d["temp"], d["rh"]), SLICE_BAR),
+        "relative_humidity": (tdiag, "relative_humidity",
+                              (d["temp"], d["td"]), SLICE_BAR),
+        "wetbulb": (tdiag, "wetbulb", (d["temp"], d["ps"], d["rh"]),
+                    SLICE_BAR),
+        "pressure": (tdiag, "pressure",
+                     (d["elev"], d["zeros"], d["ps"], d["temp"]), PA_BAR),
+        "sea_level_pressure": (
+            tdiag, "sea_level_pressure",
+            (d["ps"], d["elev"], d["temp"], d["rh"], d["no_td"]), PA_BAR),
+        "qnh": (tdiag, "qnh", (d["ps"], d["elev"]), PA_BAR),
+        "wind_speed": (tdiag, "wind_speed", (d["u"], d["v"]), SLICE_BAR),
+        "wind_direction": (tdiag, "wind_direction", (d["u"], d["v"]),
+                           SLICE_BAR),
+        "smart": (tsearch, "smart",
+                  (d["smart"], d["smart"], d["mtemp"], 5, b5), SLICE_BAR),
+        "staticcorr_points": (tsearch, "staticcorr_points",
+                              (d["pts"], d["knots"], b25, 20), SLICE_BAR),
+    })
+    return calls
+
+
+def api_slice_phase(gt, dev, lats, lons, plats, plons):
+    """Phase 11: the rest of gridpp's numpy API through the port's module
+    functions on the card, each held against its host route on a 256^2
+    cut, timed beside it at full size. Returns the `kernels` line's
+    entries of K1 on neighbourhood_score's path, with their launches in the
+    phase's driving calls."""
+    from gridpp_tpu_torch.api import ldc as tldc
+    from gridpp_tpu_torch.api import oi as toi
+    from gridpp_tpu_torch.api import verif as tverif
+    from gridpp_tpu_torch.ops import search as search_ops
+    from gridpp_tpu_torch.ops import stencil
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    d = slice_data(gt, lats, lons, plats, plons, rng)
+    # BarnesStructure(5 km): smart's; 10 km: LDC's (the benchmark's);
+    # 25 km: staticcorr_points' (~80 knots in radius, so max_points=20 cuts)
+    structures = tuple(gt.BarnesStructure(h) for h in (5000.0, 10000.0,
+                                                       25000.0))
+    n, p = lats.shape[0], plats.size
+    print(f"  data {time.perf_counter() - t0:.3f} s: grid {n}x{n}, {p} "
+          f"points, {N_TIMES} times, MEPS {MEPS_SHAPE} x {N_MEMBERS} "
+          f"members, {N_KNOTS} knots; precipitation "
+          f"{float((d['fc'] == 0).mean()):.3f} dry", flush=True)
+
+    # the host's set-up, once per network: LDC's candidate lists, smart's
+    bpoints = d["grid"].to_points()
+    loc = structures[1].localization_np(bpoints.lats, bpoints.lons)
+    (cand, mask), secs = timed(lambda: toi._candidates(
+        bpoints, d["pts"], loc, 0))
+    k = cand.shape[1]
+    block = tldc.block_rows(k, N_TIMES)
+    print(f"  LDC candidates: {secs:.3f} s on the host; K={k} (mean "
+          f"{float(mask.sum(1).mean()):.1f} in radius), K*T={k * N_TIMES}, "
+          f"block {block} gridpoints, {-(-cand.shape[0] // block)} blocks",
+          flush=True)
+    mpoints = d["smart"].to_points()
+    (scand, _), secs = timed(lambda: toi._candidates(
+        mpoints, mpoints, structures[0].localization_np(
+            mpoints.lats, mpoints.lons), 5))
+    print(f"  smart candidates: {secs:.3f} s on the host; K={scand.shape[1]}"
+          f" (padded)", flush=True)
+    band = search_ops.band_rows((n, n), 7)
+    print(f"  neighbourhood_search h=7: bands of {band} rows "
+          f"({-(-n // band)} bands)", flush=True)
+    del cand, mask, scand
+
+    calls = slice_calls(gt, d, structures)
+    wrappers = (stencil.neighbourhood_mean_cuda,
+                stencil.neighbourhood_minmax_cuda,
+                stencil.neighbourhood_var_cuda,
+                stencil.neighbourhood_quantile_fast_cuda,
+                stencil.neighbourhood_members_cuda)
+    torch.cuda.empty_cache()
+    for w in wrappers:
+        w.launches = 0
+    # -- the driving calls, counts from 0 --
+    card, peak, k1 = {}, {}, {}
+    for name, (mod, fn, args, _) in calls.items():
+        torch.cuda.reset_peak_memory_stats()
+        before = stencil.neighbourhood_mean_cuda.launches
+        card[name], secs = timed(on_card(dev, lambda: getattr(mod, fn)(
+            *args)))
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        k1[name] = stencil.neighbourhood_mean_cuda.launches - before
+        out = card[name]
+        check(isinstance(out, np.ndarray) and out.dtype == np.float32
+              and bool(np.isfinite(out).any()),
+              f"{name}: numpy {out.shape} f32 from the card, first call "
+              f"{secs * 1e3:.3f} ms, peak device memory {peak[name]:.3f} GB")
+    launches = {w.__name__: w.launches for w in wrappers}
+    score_launches = {h: k1[f"neighbourhood_score h={h}"] for h in SCORE_HS}
+    check(all(v == 1 for v in score_launches.values())
+          and launches["neighbourhood_mean_cuda"] == len(SCORE_HS)
+          and sum(launches.values()) == len(SCORE_HS),
+          f"the phase's kernel launches: one K1 a neighbourhood_score call, "
+          f"no other kernel ({launches})")
+    print(f"  phase peak device memory {max(peak.values()):.3f} GB "
+          f"({max(peak, key=peak.get)})", flush=True)
+    for h in SCORE_HS:
+        s = card[f"neighbourhood_score h={h}"]
+        print(f"  neighbourhood_score h={h} (Ets): median "
+              f"{float(np.nanmedian(s)):.4f}, {float(np.isnan(s).mean()):.4f}"
+              " of cells NaN", flush=True)
+
+    # -- each call against the host route on the cut --
+    cut = slice_calls(gt, slice_cut(gt, d, SLICE_CUT), structures)
+    for name, (mod, fn, args, bar) in cut.items():
+        got = on_card(dev, lambda: getattr(mod, fn)(*args))()
+        want = getattr(gt, fn)(*args)
+        e, same_nan = max_diff(got, want)
+        if name == "local_distribution_correction":
+            plain, _ = ldc_on_cpu(args)
+            fed, rho_d = ldc_on_cpu(args, dev)
+            n_host = past_bar(plain, want, bar)
+            n_cpu, n_native = past_bar(got, plain, bar), past_bar(got, want,
+                                                                  bar)
+            check(rho_d <= LDC_RHO_ATOL and got.shape == fed.shape
+                  and agrees(got, fed, bar),
+                  f"{name}, {SLICE_CUT}^2 cut ({bar_text(bar)}): the card's "
+                  f"rho within {LDC_RHO_ATOL} of the CPU's (max|d|="
+                  f"{rho_d:.3g}); on the card's rho the CPU's device route "
+                  f"meets the card (max|d|={max_diff(got, fed)[0]:.3g}, "
+                  f"{past_bar(got, fed, bar)} cells past); on its own rho it "
+                  f"parts from the card on {n_cpu} cells (max|d|="
+                  f"{max_diff(got, plain)[0]:.3g}; ROADMAP F11)")
+            check(n_native <= LDC_NATIVE_FACTOR * n_host and same_nan
+                  and got.shape == want.shape,
+                  f"{name}, {SLICE_CUT}^2 cut ({bar_text(bar)}; ROADMAP "
+                  f"F11): the two host routes part on {n_host} cells; the "
+                  f"card parts from the native route on {n_native} (max|d|="
+                  f"{e:.3g}, at most {LDC_NATIVE_FACTOR}x)")
+            continue
+        past = ("" if bar is None else
+                f", {past_bar(got, want, bar)} cells past (rtol, atol)")
+        check(got.shape == want.shape and agrees(got, want, bar),
+              f"{name}, {SLICE_CUT}^2 cut: card vs host route max|d|="
+              f"{e:.3g}, NaN alike {same_nan}{past} ({bar_text(bar)})")
+
+    # -- K1 on neighbourhood_score's path --
+    planes = torch.as_tensor(tverif.indicator_planes(
+        d["grid"], d["pts"], d["fc"], d["obs"], 1.0), device=dev)
+    entries = [score_k1_entry(gt, stencil, planes, h, score_launches[h])
+               for h in SCORE_HS]
+    del planes
+
+    # -- call times: numpy in and out, wall clock; device time from
+    # torch.profiler, the kernels apart from the copies; the host route
+    # (the top-level function) once, at full size --
+    for name, (mod, fn, args, bar) in calls.items():
+        run = on_card(dev, lambda: getattr(mod, fn)(*args))
+        times = [timed(run)[1] for _ in range(3)]
+        by_name = (device_ms(run, reps=1, by_kernel=True)
+                   or device_ms(run, reps=1, by_kernel=True))
+        copy_ms = sum(t for key, t in by_name.items()
+                      if "memcpy" in key.lower())
+        kern_ms = sum(by_name.values()) - copy_ms
+        dev_txt = (f"device: kernels {kern_ms:.3f} ms, copies {copy_ms:.3f} "
+                   "ms" if by_name else "device time not measured")
+        if name == "local_distribution_correction":
+            # the native route takes minutes at 2000^2: timed on a cut
+            m = LDC_HOST_CUT
+            host_args = slice_calls(gt, slice_cut(gt, d, m),
+                                    structures)[name][2]
+            _, host_s = timed(lambda: getattr(gt, fn)(*host_args))
+            versus = f"host route {host_s * 1e3:.3f} ms on the {m}^2 cut"
+        else:
+            want, host_s = timed(lambda: getattr(gt, fn)(*args))
+            e, same_nan = max_diff(card[name], want)
+            past = ("" if bar is None else
+                    f", {past_bar(card[name], want, bar)} cells past the "
+                    "bar")
+            versus = (f"host route {host_s * 1e3:.3f} ms; card vs host "
+                      f"route at full size max|d|={e:.3g}, NaN alike "
+                      f"{same_nan}{past}")
+            apart = np.nonzero(~np.isclose(card[name], want, rtol=1e-5,
+                                           atol=1e-5, equal_nan=True)
+                               .ravel())[0]
+            if name == "smart" and apart.size:
+                # a cell apart: its selection's margin on the host route
+                print(f"  smart: the {apart.size} cells apart, their "
+                      "selection margins (rho_5 - rho_6) / rho_5: "
+                      f"{smart_margins(args[0], args[4], args[3], apart[:10])}",
+                      flush=True)
+        print(f"  {name}: median call {statistics.median(times) * 1e3:.3f} "
+              f"ms over 3 ({', '.join(f'{t * 1e3:.3f}' for t in times)} ms),"
+              f" {dev_txt}; {versus} (one call)", flush=True)
+
+    # -- the host-only functions (host code in both packages), once --
+    holes = d["temp"].copy()
+    holes[rng.random(holes.shape) < 0.3] = np.nan
+    ptemp = (d["temp"].reshape(-1)[d["grid"].nearest_map(plats, plons)]
+             + rng.normal(0, 1, p)).astype(np.float32)
+    levels = rng.uniform(0, 1, lats.shape).astype(np.float32)
+    host_only = {
+        "gridding Mean r=5 km": lambda: gt.gridding(
+            d["grid"], d["pts"], d["obs"], 5000.0, 0, gt.Mean),
+        "gridding_nearest Mean": lambda: gt.gridding_nearest(
+            d["grid"], d["pts"], d["obs"], 1, gt.Mean),
+        "count r=5 km": lambda: gt.count(d["pts"], d["grid"], 5000.0),
+        "distance": lambda: gt.distance(d["pts"], d["grid"], 1),
+        "fill r=3 km": lambda: gt.fill(d["grid"], d["temp"], d["pts"],
+                                       np.full(p, 3000.0), 273.15, False),
+        "fill_missing": lambda: gt.fill_missing(holes),
+        "doping_square h=2": lambda: gt.doping_square(
+            d["grid"], d["temp"], d["pts"], ptemp, np.full(p, 2)),
+        "doping_circle r=3 km": lambda: gt.doping_circle(
+            d["grid"], d["temp"], d["pts"], ptemp, np.full(p, 3000.0)),
+        "gamma_inv": lambda: gt.gamma_inv(levels, np.full(levels.shape, 0.8),
+                                          np.full(levels.shape, 3.0)),
+    }
+    for name, fn in host_only.items():
+        out, secs = timed(fn)
+        check(isinstance(out, np.ndarray) and out.dtype == np.float32
+              and bool(np.isfinite(out).any()),
+              f"{name}: host only, {secs * 1e3:.3f} ms (one call), numpy "
+              f"{out.shape} f32")
+    return entries
 
 
 def main():
@@ -1650,6 +2201,15 @@ def main():
     lr_k1 = downscale_phase(gt, dev, lats, lons, plats, plons)
     print(f"  downscale phase {time.perf_counter() - t0:.3f} s", flush=True)
 
+    # -- 11. the rest of gridpp's numpy API --
+    print("[gridpp numpy API 2000x2000, 10k points: LDC, search, smart, "
+          "window, masking, diagnostics, verification: device route]",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    score_k1 = api_slice_phase(gt, dev, lats, lons, plats, plons)
+    print(f"  API slice phase {time.perf_counter() - t0:.3f} s", flush=True)
+
     sources = {"K1": ("neighbourhood_mean", f"{PALLAS}:301"),
                "K2": ("neighbourhood_minmax", f"{PALLAS}:364"),
                "K3": ("neighbourhood_var", f"{PALLAS}:330"),
@@ -1676,6 +2236,8 @@ def main():
                        "library_ms")}})
     # K1 on the downscale phase's path, with that path's own launches
     kernels.append(lr_k1)
+    # K1 on neighbourhood_score's path (phase 11), at each halfwidth
+    kernels.extend(score_k1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,5 @@
-"""gridpp_tpu_torch: gridpp_tpu's serving pipelines, optimal interpolation
-API, neighbourhood statistics, downscaling, elevation gradients and
-calibration in PyTorch and CUDA.
+"""gridpp_tpu_torch: gridpp_tpu in PyTorch and CUDA: its serving pipelines
+and gridpp's whole numpy API.
 
 A port of the JAX package gridpp_tpu, which stays the reference. This
 package imports torch, numpy and scipy, never jax; it carries its own
@@ -20,8 +19,13 @@ once per grid pair) and elevation gradients (`simple_gradient`,
 five K1 launches), its calibration curves (`apply_curve`,
 `quantile_mapping_curve`, `monotonize_curve`, the metric optimizer), the
 transforms (Identity, Log, BoxCox, StartedBoxCox, Gamma), `KDTree` and
-util.cpp's helpers. The top-level names follow gridpp_tpu's: the numpy API
-here, the tensor ops under gridpp_tpu_torch.ops.
+util.cpp's helpers, the local distribution correction, the conditional
+neighbourhood search, smart neighbours and static correlations, the
+running window, gridding, fill and doping, the ensemble masking
+downscalers, the meteorological diagnostics, fuzzy verification
+(`neighbourhood_score`, K1 on the card) and the SWIG typemap test
+functions. The top-level names follow gridpp_tpu's: the numpy API here,
+the tensor ops under gridpp_tpu_torch.ops.
 
 The top-level API functions run on the host (the CPU, with the native C++
 OI solvers, the LinearRegression gradient and the curves), as gridpp_tpu's
@@ -69,10 +73,27 @@ from .api.oi_ensi_multi import (  # noqa: F401
     optimal_interpolation_ensi_multi_ebe,
     optimal_interpolation_ensi_multi_ebesc,
     optimal_interpolation_ensi_multi_utem)
+from .api.diagnostics import (  # noqa: F401
+    dewpoint, gamma_inv, pressure, qnh, relative_humidity,
+    sea_level_pressure, wetbulb, wind_direction, wind_speed)
+from .api.window_api import window  # noqa: F401
+from .api.gridding import count, distance, gridding, gridding_nearest  # noqa: F401
+from .api.fill import doping_circle, doping_square, fill, fill_missing  # noqa: F401
+from .api.masking import (  # noqa: F401
+    downscale_probability, mask_threshold_downscale_consensus,
+    mask_threshold_downscale_quantile)
+from .api.search import neighbourhood_search, smart, staticcorr_points  # noqa: F401
+from .api.ldc import local_distribution_correction  # noqa: F401
+from .api.verif import (  # noqa: F401
+    neighbourhood_score, test_array, test_ivec2_output, test_ivec3_output,
+    test_ivec_input, test_ivec_output, test_not_implemented_exception,
+    test_vec2_argout, test_vec2_input, test_vec2_output, test_vec3_input,
+    test_vec3_output, test_vec_argout, test_vec_input, test_vec_output)
 
 # ---- Host pinning ------------------------------------------------------
 # The numpy-in/numpy-out API runs on the host (api._common.pin_host), as
 # gridpp_tpu's top-level functions run on its XLA:CPU backend.
+import time as _time
 import types as _types
 
 from .api._common import pin_host as _pin_host
@@ -92,6 +113,53 @@ KDTree_deg2rad = KDTree.deg2rad
 KDTree_rad2deg = KDTree.rad2deg
 
 
+def set_omp_threads(num):
+    """A no-op kept for gridpp's API: torch manages its threads."""
+
+
+def get_omp_threads():
+    return 0
+
+
+def initialize_omp():
+    """A no-op kept for gridpp's API."""
+
+
+_debug_level = 0
+
+
+def set_debug_level(level):
+    global _debug_level
+    _debug_level = int(level)
+
+
+def get_debug_level():
+    return _debug_level
+
+
+def clock():
+    """Seconds since the epoch (util.cpp's clock)."""
+    return _time.time()
+
+
+def debug(message):
+    """Print a debug message (util.cpp:226-228)."""
+    print(message)
+
+
 def warning(message):
     """Print a warning message (util.cpp:230-232)."""
     print(f"Warning: {message}")
+
+
+def error(message):
+    """Print and raise an error (util.cpp:234-245)."""
+    print(f"Error: {message}")
+    raise RuntimeError(message)
+
+
+def future_deprecation_warning(function, other=""):
+    """Deprecation notice (util.cpp:246-252)."""
+    msg = f"Future deprecation warning: {function} will be deprecated"
+    msg += f", use {other} instead." if other else "."
+    print(msg)

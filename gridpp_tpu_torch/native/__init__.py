@@ -7,8 +7,13 @@ cell-hash spatial index, `pair_rho_host`, whose rho bits make the
 canonical shortlist (ops/canonical.py) identical to gridpp_tpu's, the
 host neighbourhood kernels behind the numpy API (api/neighbourhood.py),
 the fused linear-regression gradient (`calc_gradient_lr`, api/gradients.py),
-the calibration-curve application (`apply_curve`, api/curves.py), and the
-threaded per-gridpoint OI solvers of the OI API's host route
+the calibration-curve application (`apply_curve`, api/curves.py), the
+running window (`window_run`, api/window_api.py), the conditional
+neighbourhood mean (`nb_search`, api/search.py), the local distribution
+correction (`ldc_host`, api/ldc.py), square doping (`doping_square`,
+api/fill.py), the index's fused radius statistic and circle paint
+(`NativeIndex.radius_stat`, `.paint`; api/gridding.py, api/fill.py), and
+the threaded per-gridpoint OI solvers of the OI API's host route
 (`oi_host_solve`, `oi_ensi_host_solve`, `oi_member_host_solve`,
 `oi_utem_host_solve`; api/oi.py, api/oi_ensi.py, api/oi_ensi_multi.py).
 When no compiler is available the callers fall back to scipy, numpy and
@@ -76,6 +81,16 @@ def get_lib():
                                             c_i32, c_i32, c_p]
         lib.nb_quantile_fast.argtypes = [c_p, c_i64, c_i64, c_i64, c_p,
                                          c_i64, c_p, ctypes.c_float, c_p]
+        lib.nb_search.argtypes = [c_p, c_p, c_i64, c_i64, c_i64,
+                                  ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_float, c_p, c_i32, c_p]
+        lib.doping_square.argtypes = [c_p, c_p, c_p, c_p, c_p, c_p, c_i64,
+                                      c_i64, c_i64, c_i32, ctypes.c_float,
+                                      c_p]
+        lib.window_run.argtypes = [c_p, c_i64, c_i64, c_i64, c_i32, c_i32,
+                                   c_i32, c_i32, c_p]
+        lib.index_paint.argtypes = [c_p, c_p, c_i64, c_p, c_p, c_p, c_p,
+                                    c_p, c_i32, ctypes.c_float, c_p]
         lib.index_build.restype = c_p
         lib.index_build.argtypes = [c_p, c_i64, ctypes.c_double]
         lib.index_free.argtypes = [c_p]
@@ -83,6 +98,9 @@ def get_lib():
         lib.index_knearest.argtypes = [c_p, c_p, c_i64, c_i32, c_p, c_p]
         lib.index_radius_count.argtypes = [c_p, c_p, c_i64,
                                            ctypes.c_double, c_p]
+        lib.index_radius_stat.argtypes = [c_p, c_p, c_i64, ctypes.c_double,
+                                          c_p, c_i32, ctypes.c_double,
+                                          c_i64, c_p]
         lib.pair_rho_host.argtypes = (
             [c_p] * 9 + [c_i64] + [c_p] * 5 + [c_p, c_p, c_i64]
             + [c_i32] + [c_p])
@@ -98,6 +116,9 @@ def get_lib():
         lib.oi_utem_host_solve.argtypes = (
             [c_p] * 9 + [c_i64] + [c_p] * 15 + [c_p, c_p, c_i64]
             + [c_i32, c_i32, c_i32, c_i32] + [ctypes.c_double] + [c_p] * 4)
+        lib.ldc_host.argtypes = [c_p, c_i64, c_p, c_p, c_p, c_i64, c_p, c_p,
+                                 c_i64, c_i64, ctypes.c_float,
+                                 ctypes.c_float, c_i32, c_p]
         _lib = lib
         return _lib
 
@@ -140,6 +161,43 @@ class NativeIndex:
         self._lib.index_radius_count(self._handle, _ptr(q), q.shape[0],
                                      float(radius), _ptr(out))
         return out
+
+    def radius_stat(self, q: np.ndarray, radius: float, values: np.ndarray,
+                    stat: int, quantile: float = 0.5,
+                    min_num: int = 0) -> np.ndarray:
+        """Fused radius query + statistic over the indexed points' values."""
+        q = np.ascontiguousarray(q, dtype=np.float64)
+        v = _f32c(values)
+        out = np.empty(q.shape[0], dtype=np.float32)
+        self._lib.index_radius_stat(self._handle, _ptr(q), q.shape[0],
+                                    float(radius), _ptr(v), int(stat),
+                                    float(quantile), int(min_num), _ptr(out))
+        return out
+
+    def paint(self, q: np.ndarray, radii: np.ndarray, out: np.ndarray,
+              values: np.ndarray | None = None,
+              src: np.ndarray | None = None,
+              pelev: np.ndarray | None = None,
+              gelev: np.ndarray | None = None,
+              max_diff: float = 0.0) -> None:
+        """Sequential circle scatter onto the indexed points, in place.
+
+        For query i, the indexed points within radii[i] get values[i] (or
+        src[point] when src is given); with pelev and gelev, only those
+        within max_diff of the query's elevation. out: a C-contiguous f32
+        array."""
+        q = np.ascontiguousarray(q, dtype=np.float64)
+        radii = np.ascontiguousarray(radii, dtype=np.float64)
+        values_c = None if values is None else _f32c(values)
+        src_c = None if src is None else _f32c(src)
+        check = pelev is not None and gelev is not None
+        pe = _f32c(pelev) if check else None
+        ge = _f32c(gelev) if check else None
+        self._lib.index_paint(
+            self._handle, _ptr(q), q.shape[0], _ptr(radii),
+            *(None if a is None else _ptr(a)
+              for a in (values_c, src_c, pe, ge)),
+            int(check), float(max_diff), _ptr(out))
 
 
 def _ptr(a: np.ndarray):
@@ -268,6 +326,89 @@ def apply_curve(fcst: np.ndarray, curve_ref: np.ndarray,
         lib.apply_curve_percell(_ptr(f), f.size, _ptr(cr), _ptr(cf),
                                 cr.shape[-1], int(policy_below),
                                 int(policy_above), _ptr(out))
+    return out
+
+
+def window_run(array: np.ndarray, length: int, stat: int, before: bool,
+               keep_missing: bool, missing_edges: bool) -> np.ndarray | None:
+    """Running-window Mean/Sum/Count along the last axis of (Case, T)
+    (window.cpp:6-156). None when the native engine is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a = _f32c(array)
+    out = np.empty(a.shape, np.float32)
+    lib.window_run(_ptr(a), a.shape[0], a.shape[1], int(length), int(stat),
+                   int(before), int(keep_missing), int(missing_edges),
+                   _ptr(out))
+    return out
+
+
+def nb_search(array: np.ndarray, search_array: np.ndarray, halfwidth: int,
+              target_min: float, target_max: float, delta: float,
+              apply_array: np.ndarray | None) -> np.ndarray | None:
+    """Conditional neighbourhood mean (neighbourhood_search.cpp:7-113) of
+    (Y, X) arrays. None when the native engine is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    a = _f32c(array)
+    s = _f32c(search_array)
+    ny, nx = a.shape
+    use_apply = apply_array is not None
+    ap = _f32c(apply_array) if use_apply else a
+    out = np.empty((ny, nx), np.float32)
+    lib.nb_search(_ptr(a), _ptr(s), ny, nx, int(halfwidth),
+                  float(target_min), float(target_max), float(delta),
+                  _ptr(ap), int(use_apply), _ptr(out))
+    return out
+
+
+def doping_square(cy: np.ndarray, cx: np.ndarray, obs: np.ndarray,
+                  hw: np.ndarray, pelev: np.ndarray, gelev: np.ndarray,
+                  ny: int, nx: int, check_elev: bool, max_diff: float,
+                  out: np.ndarray) -> bool:
+    """Square doping (doping.cpp:5-48) in place over the C-contiguous f32
+    `out` (ny, nx). False when the native engine is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    cy = np.ascontiguousarray(cy, np.int64)
+    cx = np.ascontiguousarray(cx, np.int64)
+    obs = _f32c(obs)
+    hw = np.ascontiguousarray(hw, np.int64)
+    pelev = _f32c(pelev)
+    gelev = _f32c(gelev)
+    lib.doping_square(_ptr(cy), _ptr(cx), _ptr(obs), _ptr(hw), _ptr(pelev),
+                      _ptr(gelev), cy.size, int(ny), int(nx),
+                      int(check_elev), float(max_diff), _ptr(out))
+    return True
+
+
+def ldc_host(background, cand, mask, rho, pobs, pbackground, min_quantile,
+             max_quantile, min_points):
+    """Threaded local_distribution_correction (csrc ldc_host).
+
+    background: (N,) flattened; cand/mask/rho: (N, K); pobs/pbackground:
+    (T, S) per-obs time series. Returns (N,) f32 or None when the native
+    engine is unavailable.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    bg = _f32c(background)
+    n = bg.shape[0]
+    cand = np.ascontiguousarray(cand, np.int32)
+    mask = np.ascontiguousarray(mask, np.uint8)
+    rho = _f32c(rho)
+    obs = _f32c(pobs)
+    fcst = _f32c(pbackground)
+    t, s_obs = obs.shape
+    out = np.empty(n, np.float32)
+    lib.ldc_host(_ptr(bg), n, _ptr(cand), _ptr(mask), _ptr(rho),
+                 cand.shape[1], _ptr(obs), _ptr(fcst), t, s_obs,
+                 float(min_quantile), float(max_quantile),
+                 int(min_points), _ptr(out))
     return out
 
 

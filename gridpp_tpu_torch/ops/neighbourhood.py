@@ -112,15 +112,19 @@ def _xla_basic(input: torch.Tensor, h: int, statistic: int) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
-def _window_stack(x: torch.Tensor, h: int) -> torch.Tensor:
+def _window_stack(x: torch.Tensor, h: int,
+                  rows: slice | None = None) -> torch.Tensor:
     """The (2h+1)^2 shifted copies of x along a new last axis, in (dy, dx)
     order; out-of-domain positions are NaN (skipped by the NaN-aware
     reductions), which gives the clipped window. h is clamped to the grid
-    extent: larger windows are equivalent after edge clipping."""
+    extent: larger windows are equivalent after edge clipping. rows: only
+    these rows' windows are made."""
     h = min(h, max(x.shape[-2], x.shape[-1]) - 1)
     w = 2 * h + 1
     xp = F.pad(x.to(torch.float32), (h, h, h, h), value=torch.nan)
     stack = xp.unfold(-2, w, 1).unfold(-2, w, 1)  # (..., Y, X, w_y, w_x)
+    if rows is not None:
+        stack = stack[..., rows, :, :, :]
     return stack.reshape(stack.shape[:-2] + (w * w,))
 
 

@@ -364,6 +364,29 @@ def test_device_caches_keyed_on_device(device_route):
     assert keys and all(k[-1] == torch.device("cpu") for k in keys)
 
 
+def test_device_all_in_radius_candidates_in_row_blocks(device_route,
+                                                       monkeypatch):
+    """max_points 0 past _candidates' exact query size: the ball query's
+    lists in blocks of rows (`_ball_fetch`, no k-nearest query of the whole
+    network), so the host-candidate solver gives the same bits as on the
+    exact query's lists."""
+    d = _net(seed=13)
+    s = NATIVE["barnes"](gt)
+
+    def run():
+        b, pts = _build(gt, d)
+        return tapi.optimal_interpolation(b, d["bg"], pts, d["pobs"],
+                                          d["ratios"], d["pback"], s, 0)
+
+    want = run()
+    monkeypatch.setattr(tapi, "_BALL_QUERY_MAX", 64)
+    fetches = spy(monkeypatch, tapi, "_ball_fetch")
+    got = run()
+    assert fetches == [1]
+    assert np.array_equal(got, want, equal_nan=True)
+    assert not np.array_equal(got, d["bg"], equal_nan=True)
+
+
 # -- selection on exact ties (ROADMAP F2) ------------------------------------
 
 @pytest.mark.parametrize("width", [40, 300])

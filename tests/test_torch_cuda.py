@@ -875,3 +875,207 @@ def test_device_route_makes_no_cpu_tensor(dev):
         with torch.device(dev):
             seen, copies = _cpu_results(fn)
         assert not seen and copies == 1, (name, seen, copies)
+
+
+# -- the rest of gridpp's numpy API: LDC, search, window, masking,
+# diagnostics, verification --------------------------------------------------
+SLICE_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_torch_api_*.py
+PA_TOL = dict(rtol=1e-5, atol=1e-2)
+LDC_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_ldc.py:155
+
+
+def _slice_problem(n=160, p=400, seed=21):
+    """A 160 x 160 grid over 59-60N 10-11.5E with relief, 400 stations,
+    precipitation (60% dry) with 6 (obs, forecast) pairs a station, an
+    80 x 70 ensemble source of 5 members, and the diagnostics' fields."""
+    rng = np.random.default_rng(seed)
+    lats, lons = np.meshgrid(np.linspace(59, 60, n), np.linspace(10, 11.5, n),
+                             indexing="ij")
+    elev = rng.uniform(0, 1500, (n, n)).astype(np.float32)
+    laf = np.clip(rng.normal(0.7, 0.4, (n, n)), 0, 1).astype(np.float32)
+    grid = gt.Grid(lats, lons, elev, laf)
+    pts = gt.Points(rng.uniform(59, 60, p), rng.uniform(10, 11.5, p),
+                    rng.uniform(0, 1500, p), rng.uniform(0, 1, p))
+
+    def rain(shape):
+        x = rng.gamma(0.8, 3.0, shape).astype(np.float32)
+        x[rng.random(shape) < 0.6] = 0.0
+        return x
+
+    slats, slons = np.meshgrid(np.linspace(58.9, 60.1, 80),
+                               np.linspace(9.9, 11.6, 70), indexing="ij")
+    temp = (288 - 0.0065 * elev + rng.normal(0, 2, (n, n))).astype(
+        np.float32)
+    return dict(
+        grid=grid, pts=pts, elev=elev, laf=laf, temp=temp, fc=rain((n, n)),
+        obs=rain(p), pobs=rain((6, p)), pbg=rain((6, p)),
+        hourly=rain((3000, 24)), src=gt.Grid(slats, slons),
+        ens=[rain((80, 70, 5)) for _ in range(3)],
+        thr=np.full((n, n), 1.0, np.float32),
+        rh=rng.uniform(0.05, 1, (n, n)).astype(np.float32),
+        ps=(101325 * np.exp(-elev / 8000.0)).astype(np.float32),
+        u=rng.normal(0, 6, (n, n)).astype(np.float32),
+        v=rng.normal(0, 6, (n, n)).astype(np.float32),
+        knots=gt.Points(rng.uniform(59, 60, 60), rng.uniform(10, 11.5, 60),
+                        np.zeros(60), np.zeros(60)))
+
+
+def _slice_calls(d):
+    """name -> (api module, function name, args, bar; None: equal)."""
+    from gridpp_tpu_torch.api import diagnostics as tdiag
+    from gridpp_tpu_torch.api import ldc as tldc
+    from gridpp_tpu_torch.api import masking as tmask
+    from gridpp_tpu_torch.api import search as tsearch
+    from gridpp_tpu_torch.api import verif as tverif
+    from gridpp_tpu_torch.api import window_api as twin
+    small = gt.Grid(d["grid"].get_lats()[::4, ::4],
+                    d["grid"].get_lons()[::4, ::4])
+    return {
+        "neighbourhood_score": (tverif, "neighbourhood_score", (
+            d["grid"], d["pts"], d["fc"], d["obs"], 5, gt.Ets, 1.0), TOL),
+        "neighbourhood_search": (tsearch, "neighbourhood_search", (
+            d["temp"], d["laf"], 7, 0.8, 1.0, 0.1), SLICE_TOL),
+        "local_distribution_correction": (
+            tldc, "local_distribution_correction",
+            (d["grid"], d["fc"], d["pts"], d["pobs"], d["pbg"],
+             gt.BarnesStructure(5000.0), 0.1, 0.9, 3), LDC_TOL),
+        "window Sum": (twin, "window", (d["hourly"], 3, gt.Sum, True),
+                       SLICE_TOL),
+        "window Max": (twin, "window", (d["hourly"], 5, gt.Max), None),
+        "downscale_probability": (tmask, "downscale_probability", (
+            d["src"], d["grid"], d["ens"][0], d["thr"], gt.Geq), None),
+        "mask_threshold_downscale_consensus": (
+            tmask, "mask_threshold_downscale_consensus",
+            (d["src"], d["grid"], *d["ens"], d["thr"], gt.Geq, gt.Mean),
+            SLICE_TOL),
+        "dewpoint": (tdiag, "dewpoint", (d["temp"], d["rh"]), SLICE_TOL),
+        "wetbulb": (tdiag, "wetbulb", (d["temp"], d["ps"], d["rh"]),
+                    SLICE_TOL),
+        "sea_level_pressure": (tdiag, "sea_level_pressure", (
+            d["ps"], d["elev"], d["temp"], d["rh"],
+            np.full(d["rh"].shape, np.nan, np.float32)), PA_TOL),
+        "qnh": (tdiag, "qnh", (d["ps"], d["elev"]), PA_TOL),
+        "wind_direction": (tdiag, "wind_direction", (d["u"], d["v"]),
+                           SLICE_TOL),
+        "smart": (tsearch, "smart", (small, small, d["temp"][::4, ::4], 5,
+                                     gt.BarnesStructure(3000.0)), SLICE_TOL),
+        "staticcorr_points": (tsearch, "staticcorr_points", (
+            d["pts"], d["knots"], gt.BarnesStructure(8000.0), 6), SLICE_TOL),
+    }
+
+
+def test_slice_card_routes_match_host_routes(dev):
+    """Each module function on the card against its top-level function (the
+    host route: native search, window and LDC, torch on the CPU for the
+    rest) at the parity tests' bars."""
+    d = _slice_problem()
+    for name, (mod, fn, args, tol) in _slice_calls(d).items():
+        with torch.device(dev):
+            got = getattr(mod, fn)(*args)
+        want = getattr(gt, fn)(*args)
+        assert got.shape == want.shape and got.dtype == np.float32, name
+        assert np.array_equal(np.isnan(got), np.isnan(want)), name
+        if tol is None:
+            assert np.array_equal(got, want, equal_nan=True), name
+        elif tol is LDC_TOL:
+            _assert_ldc_routes(mod, args, got, want, dev)
+        else:
+            np.testing.assert_allclose(got, want, err_msg=name, **tol)
+
+
+class _RhoOn:
+    """A structure whose corr_background_torch is evaluated on dev and
+    handed back on the caller's device; max_diff: the largest |rho on dev -
+    rho on the caller's device|."""
+
+    def __init__(self, structure, dev):
+        self.structure, self.dev, self.max_diff = structure, dev, 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.structure, name)
+
+    def corr_background_torch(self, p1, p2):
+        own = self.structure.corr_background_torch(p1, p2)
+        rho = self.structure.corr_background_torch(
+            *({k: v.to(self.dev) for k, v in p.items()} for p in (p1, p2)))
+        rho = rho.to(own.device)
+        if rho.numel():
+            self.max_diff = max(self.max_diff,
+                                float((rho - own).abs().max()))
+        return rho
+
+
+def _assert_ldc_routes(tldc, args, card, native, dev):
+    """ROADMAP F11: the card's rho is within 1e-6 of the CPU's, and on the
+    card's rho the device route on the CPU meets the card at LDC_TOL on
+    every cell; the card parts past LDC_TOL from the native host route on
+    at most twice as many cells as the CPU's device route does."""
+    from gridpp_tpu_torch.api import oi as toi
+    grid, bg, pts, pobs, pbg, structure, minq, maxq, min_points = args
+    bpoints = grid.to_points()
+    cand, mask = toi._candidates(bpoints, pts, structure.localization_np(
+        bpoints.lats, bpoints.lons), 0)
+
+    def on_cpu(s):
+        return tldc._ldc_device(
+            bpoints, pts, s, bg.reshape(-1), cand, mask, pobs, pbg, minq,
+            maxq, min_points, torch.device("cpu")).reshape(bg.shape)
+
+    def past(a, b):
+        return int((~np.isclose(a, b, equal_nan=True, **LDC_TOL)).sum())
+
+    card_rho = _RhoOn(structure, dev)
+    np.testing.assert_allclose(card, on_cpu(card_rho), **LDC_TOL)
+    assert card_rho.max_diff <= 1e-6
+    plain = on_cpu(structure)
+    assert past(card, native) <= 2 * past(plain, native)
+
+
+def test_neighbourhood_score_on_card_is_one_k1_launch(dev):
+    """neighbourhood_score smooths its four indicator planes with one K1
+    launch, which matches K1's plain version on them at K1's bars."""
+    from gridpp_tpu_torch.api import verif as tverif
+    d = _slice_problem(n=300, p=900, seed=22)
+    for h in (7, 25, 70):
+        before = stencil.neighbourhood_mean_cuda.launches
+        with torch.device(dev):
+            tverif.neighbourhood_score(d["grid"], d["pts"], d["fc"],
+                                       d["obs"], h, gt.Kss, 1.0)
+        assert stencil.neighbourhood_mean_cuda.launches - before == 1
+        planes = torch.as_tensor(tverif.indicator_planes(
+            d["grid"], d["pts"], d["fc"], d["obs"], 1.0), device=dev)
+        _assert_matches(
+            stencil.neighbourhood_mean_cuda(planes, h, h, int(gt.Mean)),
+            stencil.neighbourhood_mean_plain(planes, h, h, int(gt.Mean)),
+            TOL)
+
+
+def test_search_and_ldc_card_chunks(dev, monkeypatch):
+    """neighbourhood_search's bands and LDC's blocks on the card give the
+    one pass's bits."""
+    from gridpp_tpu_torch.api import ldc as tldc
+    from gridpp_tpu_torch.ops import search as tsearch_ops
+    d = _slice_problem(seed=23)
+    calls = _slice_calls(d)
+    whole = {}
+    for name in ("neighbourhood_search", "local_distribution_correction"):
+        mod, fn, args, _ = calls[name]
+        with torch.device(dev):
+            whole[name] = getattr(mod, fn)(*args)
+    monkeypatch.setattr(tsearch_ops, "BAND_BYTES", 1)
+    monkeypatch.setattr(tldc, "block_rows", lambda k, nt: 333)
+    for name in whole:
+        mod, fn, args, _ = calls[name]
+        with torch.device(dev):
+            assert np.array_equal(getattr(mod, fn)(*args), whole[name],
+                                  equal_nan=True), name
+
+
+def test_slice_device_routes_make_no_cpu_tensor(dev):
+    """The slice's card routes make no CPU tensor before their one final
+    copy to the host."""
+    d = _slice_problem(n=96, p=200, seed=24)
+    for name, (mod, fn, args, _) in _slice_calls(d).items():
+        with torch.device(dev):
+            seen, copies = _cpu_results(lambda: getattr(mod, fn)(*args))
+        assert not seen and copies == 1, (name, seen, copies)

@@ -1,4 +1,5 @@
 """gridpp_tpu_torch imports without jax and exposes the slice's names."""
+import json
 import os
 import subprocess
 import sys
@@ -21,6 +22,11 @@ def test_import_pulls_in_no_jax():
             "import gridpp_tpu_torch.api.gradients\n"
             "import gridpp_tpu_torch.api.curves\n"
             "import gridpp_tpu_torch.api.transform\n"
+            "import gridpp_tpu_torch.api.ldc, gridpp_tpu_torch.api.search\n"
+            "import gridpp_tpu_torch.api.window_api\n"
+            "import gridpp_tpu_torch.api.gridding, gridpp_tpu_torch.api.fill\n"
+            "import gridpp_tpu_torch.api.masking, gridpp_tpu_torch.api.verif\n"
+            "import gridpp_tpu_torch.api.diagnostics\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
             "                                            'gridpp_tpu.')))\n"
@@ -30,6 +36,25 @@ def test_import_pulls_in_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_public_names_are_gridpp_tpus():
+    """The port's public names are gridpp_tpu's, each package imported
+    alone in a fresh process (a test worker may have imported submodules
+    that add names)."""
+    code = ("import json, {0}\n"
+            "print(json.dumps([n for n in dir({0}) if not n.startswith('_')]))"
+            "\n")
+    names = {}
+    for pkg in ("gridpp_tpu", "gridpp_tpu_torch"):
+        res = subprocess.run([sys.executable, "-c", code.format(pkg)],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        assert res.returncode == 0, res.stderr
+        names[pkg] = set(json.loads(res.stdout.strip().splitlines()[-1]))
+    assert len(names["gridpp_tpu"]) > 150
+    assert names["gridpp_tpu"] - names["gridpp_tpu_torch"] == set()
+    assert names["gridpp_tpu_torch"] - names["gridpp_tpu"] == set()
 
 
 @pytest.mark.parametrize("name", [
