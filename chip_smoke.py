@@ -1,6 +1,6 @@
 """Smoke run of gridpp_tpu_torch's serving, neighbourhood-statistics, OI
-API, downscaling/calibration paths and the rest of gridpp's numpy API on
-one CUDA card.
+API, downscaling/calibration paths, the rest of gridpp's numpy API, the
+parallel layer and the command-line client on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -160,13 +160,44 @@ Run from the root of a checkout. In order it:
    host route's at full size (their difference printed); the host-only
    calls (gridding, gridding_nearest, count, distance, fill, fill_missing,
    doping_square, doping_circle, gamma_inv) timed once.
+12. the parallel layer (gridpp_tpu_torch.parallel) at phase 5's size
+   (2000 x 2000, 10,000 stations, BarnesStructure(10 km), max_points 10,
+   Mean h=7), launch counts set to 0 before each driving run: (a) a
+   one-rank NCCL group (initialize(), an all_reduce, global_mesh()):
+   make_distributed_step three times, K1 once a step, equal to the
+   whole-grid ops.neighbourhood + oi_dense_sweep at rtol 2e-5, atol 2e-4
+   (tests/test_distributed.py:80), K1 on the 2014 x 2014 padded tile
+   against its plain version; (b) four gloo ranks spawned on this card (a
+   (2, 2) mesh, strips staged through host buffers): three steps each, K1
+   once a step on every rank, the gathered analysis equal to (a)'s at the
+   same bar; (c) sharded_neighbourhood Mean, Max and Std (on the anomaly)
+   h=7 on (b)'s mesh against the whole grid at K1's bars, equal and K3's
+   bars, one launch of each kernel a rank; each step's median time of 3
+   with its exchange and stencil alone (the OI the rest), peak memory;
+   K2 and K3 on a sharded tile (1014 x 1014) against their plain versions.
+13. the command-line client (python -m gridpp_tpu_torch) at MEPS size: a
+   NetCDF3 file (scipy) of phase 10's 949 x 739 grid, relief and 24 leads
+   of temperature, to a 2000 x 2000 template with altitude, four output
+   variables (-vi air_temperature_2m -v ... -d bilinear, three of them
+   with -c neighbourhood radius=7 stat=mean / max / std): in a subprocess
+   on the card (wall clock, exit 0), in this process under host() and on
+   the card (one K1, K2 and K3 launch a lead); card against host():
+   bilinear rtol 1e-6, atol 1e-4, Mean K1's bars, Max equal, Std (a 280 K
+   field, ROADMAP F14) against float64 on each route's bilinear field,
+   the card's error quantiles at most 2x the host's; K1, K2 and K3 on the
+   calibrator's 2000 x 2000 slice against their plain versions (K1, K2
+   against avg_pool2d / max_pool2d); then -c oi (Box-Cox, single-member:
+   its back-transform smoothing is four K1 launches a lead) on a 256 x 256
+   cut, 2 leads, the ~150 stations inside it: card vs host() within 1e-3.
 
 Any failed check raises. The line before the last is a JSON record of the
 kernels (K1-K5; K1's launches those of phase 5's h=7 cycles and phase
 10's LinearRegression call, K3's those of phase 6's Std cycles and call,
 K4's phase 6's two calls; the wide route of K1, whose launches are phase
 5's h=100 cycles; K1 on phase 11's neighbourhood_score path, one entry a
-halfwidth); the last line is {"ok": true, "device": {...}}.
+halfwidth; K1 on phase 12's padded tile, K2 and K3 on its sharded tiles,
+K1, K2 and K3 in phase 13's CLI); the last line is {"ok": true, "device":
+{...}}. Each phase's seconds are printed as the next begins.
 """
 from __future__ import annotations
 
@@ -326,6 +357,14 @@ def run_cycles(pipe, bgs, obs, gap, rat):
               f"({', '.join(f'{t * 1e3:.3f}' for t in times[path])} ms)",
               flush=True)
     return 3 * CYCLES + 2
+
+
+def lap(laps):
+    """Mark a phase's start in laps (host-clock seconds) and print the
+    time since the previous mark."""
+    laps.append(time.perf_counter())
+    if len(laps) > 2:
+        print(f"  ({laps[-1] - laps[-2]:.3f} s)", flush=True)
 
 
 def timed(fn):
@@ -1582,7 +1621,533 @@ def api_slice_phase(gt, dev, lats, lons, plats, plons):
     return entries
 
 
+# -- phases 12 and 13: the parallel layer and the command-line client --------
+STEP_RTOL, STEP_ATOL = 2e-5, 2e-4   # tests/test_distributed.py:80
+PAR_H, PAR_RANKS, PAR_BLOCK, PAR_REPS = 7, 4, 4096, 3
+CLI_H = 7
+# the CLI's output variables: name -> the statistic of its neighbourhood
+# calibrator (None: bilinear alone)
+CLI_VARS = {"t_bilinear": None, "t_mean": "mean", "t_max": "max",
+            "t_std": "std"}
+# the -c oi cut: its size, its leads (the calibrator's kriging is host
+# numpy, ~5.5 s a lead at 256^2) and the OI calibrator's options
+CLI_OI_CUT, CLI_OI_LEADS = 256, 2
+CLI_OI_OPTS = ["d=30000", "transform=boxcox", "lambda=0.5"]
+
+
+def path_entry(stencil, label, k, x, h, stat, launches, library=None):
+    """The `kernels` line's entry of kernel k (K1, K2 or K3) on a path's
+    tensor x at halfwidth h: held against its plain version at the
+    kernel's bar, timed beside it and, where one PyTorch call computes the
+    same function on x (library), beside that, with its bound."""
+    wrapper, plain_fn, tol, src = {
+        "K1": (stencil.neighbourhood_mean_cuda,
+               stencil.neighbourhood_mean_plain, (K1_RTOL, K1_ATOL),
+               "neighbourhood_mean"),
+        "K2": (stencil.neighbourhood_minmax_cuda,
+               stencil.neighbourhood_minmax_plain, None,
+               "neighbourhood_minmax"),
+        "K3": (stencil.neighbourhood_var_cuda,
+               stencil.neighbourhood_var_plain, (K3_RTOL, K3_ATOL),
+               "neighbourhood_var")}[k]
+    line = {"K1": 301, "K2": 364, "K3": 330}[k]
+
+    def card():
+        return wrapper(x, h, h, stat)
+
+    def plain():
+        return plain_fn(x, h, h, stat)
+
+    ok, err = compare(card(), plain(), tol)
+    check(ok, f"{k} on {label} {tuple(x.shape)} h={h} vs plain: "
+              f"max|d|={err:.3g}")
+    if library is not None:
+        ok, e = compare(card(), library(), (K1_RTOL, K1_ATOL))
+        check(ok, f"{k} on {label}: the library call computes the same "
+                  f"function (max|d|={e:.3g})")
+    cells = x.numel()
+    # bytes: one f32 read and one f32 write; operations: the separable
+    # window's adds (K1: sums and counts) or compares (K2), K3's three
+    # sums, 2h+1 terms a cell and pass
+    ops = {"K1": 4, "K2": 2, "K3": 6}[k] * (2 * h + 1) * cells
+    entry = {"name": f"{wrapper.__name__} ({label})", "route": "cuda",
+             "source": f"gridpp_tpu_torch/csrc/{src}.cu",
+             "replaces": f"{PALLAS}:{line}", "launches": launches,
+             "max_abs_err": err, "ms": event_ms(card)}
+    entry.update(device_ms=device_ms(card, at_least=0.5 * entry["ms"]),
+                 plain_ms=event_ms(plain, reps=5),
+                 library_ms=None if library is None else event_ms(library))
+    entry["bound_ms"], entry["bound_by"] = bound_ms(8 * cells, ops,
+                                                    F32_OPS_S)
+    dev_ms, lib = entry["device_ms"], entry["library_ms"]
+    print(f"  {k} on {label} {tuple(x.shape)}, h={h}: kernel "
+          f"{entry['ms']:.4f} ms (device only "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+          f"plain {entry['plain_ms']:.4f} ms, library call "
+          f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
+          f"{entry['bound_ms'] / entry['ms']:.3f} of the bound", flush=True)
+    return entry
+
+
+def step_problem():
+    """Phase 5's problem as the distributed step takes it: (structure,
+    background (Y, X), grid-point fields (Y, X), obs fields (P,), pobs,
+    pback, ratios), numpy."""
+    import gridpp_tpu_torch as gt
+    from gridpp_tpu_torch.api.oi import _origin, _resolved_fields
+    lats, lons, plats, plons, background, noise = bench_problem()
+    p = plats.size
+    grid = gt.Grid(lats, lons)
+    points = gt.Points(plats, plons, np.zeros(p), np.zeros(p))
+    structure = gt.BarnesStructure(10000.0)
+    pback = background.reshape(-1)[grid.nearest_map(points.lats,
+                                                    points.lons)]
+    pobs = (pback + noise).astype(np.float32)
+    bpoints = grid.to_points()
+    origin = _origin(bpoints)
+    p1 = {k: np.asarray(v, np.float32).reshape(background.shape)
+          for k, v in _resolved_fields(bpoints, structure, origin).items()}
+    obs = {k: np.asarray(v, np.float32)
+           for k, v in _resolved_fields(points, structure, origin).items()}
+    return (structure, background, p1, obs, pobs, pback,
+            np.full(p, 0.1, np.float32))
+
+
+def run_step(mesh, prob):
+    """make_distributed_step (Mean h=7, max_points 10) on this rank's block
+    of prob: PAR_REPS steps, each timed on the host clock up to a
+    synchronised card, then its exchange and stencil once alone (the OI's
+    share is the rest of the median step). Returns (the analysis block,
+    the step seconds, the parts' seconds, K1's launches in the steps, the
+    padded tile)."""
+    from gridpp_tpu_torch.constants import Statistic
+    from gridpp_tpu_torch.ops import neighbourhood as nops
+    from gridpp_tpu_torch.ops import stencil
+    from gridpp_tpu_torch.parallel import distributed as gdist
+    from gridpp_tpu_torch.parallel.halo import halo_exchange_2d
+
+    structure, background, p1, obs, pobs, pback, ratios = prob
+    ys, xs = mesh.block_slices(background.shape)
+    bg = gdist.global_field(background[ys, xs], mesh)
+    tiles = {k: gdist.global_field(v[ys, xs], mesh) for k, v in p1.items()}
+    rest = ({k: gdist.replicate(v, mesh) for k, v in obs.items()},
+            gdist.replicate(pobs, mesh), gdist.replicate(pback, mesh),
+            gdist.replicate(ratios, mesh))
+    mean = int(Statistic.Mean)
+    step = gdist.make_distributed_step(mesh, structure, PAR_H, mean, 10,
+                                       True, tuple(p1), PAR_BLOCK)
+    stencil.neighbourhood_mean_cuda.launches = 0
+    times = []
+    for _ in range(PAR_REPS):
+        out, secs = timed(lambda: step(bg, tiles, *rest))
+        times.append(secs)
+    launches = stencil.neighbourhood_mean_cuda.launches
+    padded, t_ex = timed(lambda: halo_exchange_2d(bg, PAR_H, mesh))
+    _, t_st = timed(lambda: nops.neighbourhood(padded, PAR_H, mean)[
+        PAR_H:-PAR_H, PAR_H:-PAR_H].reshape(-1))
+    t_oi = statistics.median(times) - t_ex - t_st
+    return out, times, (t_ex, t_st, t_oi), launches, padded
+
+
+def parallel_rank():
+    """Phase 12 (b) and (c) on one of PAR_RANKS gloo ranks, every rank's
+    tiles on cuda:0: the distributed step on make_mesh(PAR_RANKS), then
+    sharded_neighbourhood Mean, Max and Std (on the anomaly) h=7. Returns
+    this rank's times, launches and peak memory, and on rank 0 the
+    gathered fields."""
+    import torch.distributed as dist
+
+    import gridpp_tpu_torch as gt
+    from gridpp_tpu_torch.ops import stencil
+    from gridpp_tpu_torch.parallel import make_mesh, sharded_neighbourhood
+    from gridpp_tpu_torch.parallel import distributed as gdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(PAR_RANKS)
+    prob = step_problem()
+    torch.cuda.reset_peak_memory_stats()
+    out, times, parts, k1_step, _ = run_step(mesh, prob)
+    analysis = gdist.gather_to_host(out, mesh)
+    ys, xs = mesh.block_slices(prob[1].shape)
+    tile = gdist.global_field(prob[1][ys, xs], mesh)
+    sharded = {}
+    for w in (stencil.neighbourhood_mean_cuda,
+              stencil.neighbourhood_minmax_cuda,
+              stencil.neighbourhood_var_cuda):
+        w.launches = 0
+    for stat in (int(gt.Mean), int(gt.Max), int(gt.Std)):
+        x = tile - 280.0 if stat == int(gt.Std) else tile
+        sharded[stat] = gdist.gather_to_host(
+            sharded_neighbourhood(mesh, PAR_H, stat)(x), mesh)
+    return {"device": str(mesh.device), "backend": dist.get_backend(),
+            "staged": mesh.staged(), "mesh": mesh.ranks.shape,
+            "times": times, "parts": parts, "k1_step": k1_step,
+            "sharded_launches": [w.launches for w in (
+                stencil.neighbourhood_mean_cuda,
+                stencil.neighbourhood_minmax_cuda,
+                stencil.neighbourhood_var_cuda)],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "analysis": analysis if dist.get_rank() == 0 else None,
+            "sharded": sharded if dist.get_rank() == 0 else None}
+
+
+def report_step(label, times, parts):
+    print(f"  {label}: step median {statistics.median(times):.3f} s of "
+          f"{len(times)} ({', '.join(f'{t:.3f}' for t in times)} s); "
+          f"exchange {parts[0] * 1e3:.3f} ms, stencil "
+          f"{parts[1] * 1e3:.3f} ms (each alone), OI the rest, "
+          f"{parts[2]:.3f} s", flush=True)
+
+
+def parallel_phase(gt, dev):
+    """Phase 12: the parallel layer at phase 5's size. (a) one NCCL rank:
+    the distributed step against the same arithmetic on one tensor, and K1
+    on its padded tile; (b) PAR_RANKS gloo ranks on this card: their
+    gathered analysis against (a); (c) the sharded stencil on (b)'s mesh
+    against the whole grid. Returns the `kernels` line's entries."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gridpp_tpu_torch.ops import neighbourhood as nops
+    from gridpp_tpu_torch.ops import stencil
+    from gridpp_tpu_torch.ops.oi import oi_dense_sweep
+    from gridpp_tpu_torch.parallel import distributed as gdist
+    from gridpp_tpu_torch.parallel.dryrun import run_ranks
+
+    mean, mx, std = int(gt.Mean), int(gt.Max), int(gt.Std)
+    prob, secs = timed(step_problem)
+    structure, background, p1, obs, pobs, pback, ratios = prob
+    print(f"  data {secs:.3f} s: {background.shape}, {pobs.size} obs, "
+          f"BarnesStructure(10 km), max_points 10, Mean h={PAR_H}, OI "
+          f"blocks of {PAR_BLOCK} gridpoints", flush=True)
+
+    # -- (a) one NCCL rank --
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    check(gdist.initialize(f"localhost:{port}", 1, 0) is False
+          and dist.get_backend() == "nccl",
+          "initialize(): a one-rank NCCL group, not distributed")
+    one = torch.ones(1, device=dev)
+    dist.all_reduce(one)
+    check(float(one) == 1.0, "NCCL all_reduce on the one-rank group")
+    mesh = gdist.global_mesh()
+    check(mesh.ranks.shape == (1, 1) and mesh.device == dev,
+          f"global_mesh(): (1, 1) on {mesh.device}")
+    torch.cuda.reset_peak_memory_stats()
+    out_a, times, parts, k1_launches, padded = run_step(mesh, prob)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(k1_launches == PAR_REPS,
+          f"K1 launched once a step ({k1_launches} in {PAR_REPS} steps)")
+    report_step(f"one NCCL rank, {background.shape}", times, parts)
+    bg = torch.as_tensor(background, device=dev)
+    flat = nops.neighbourhood(bg, PAR_H, mean).reshape(-1)
+    ref, secs = timed(lambda: oi_dense_sweep(
+        structure, {k: torch.as_tensor(v.reshape(-1), device=dev)
+                    for k, v in p1.items()},
+        {k: torch.as_tensor(v, device=dev) for k, v in obs.items()}, flat,
+        torch.ones_like(flat), torch.as_tensor(pobs, device=dev),
+        torch.as_tensor(pback, device=dev),
+        torch.as_tensor(ratios, device=dev), 10, True, PAR_BLOCK)[0])
+    ref = ref.reshape(bg.shape)
+    ok, err = compare(out_a, ref, (STEP_RTOL, STEP_ATOL))
+    check(ok and bool(torch.isfinite(out_a).all()),
+          f"one rank: the step == whole-grid ops.neighbourhood + "
+          f"oi_dense_sweep ({secs:.3f} s) at rtol {STEP_RTOL}, atol "
+          f"{STEP_ATOL} (max|d|={err:.3g}); finite")
+    check(tuple(padded.shape) == tuple(n + 2 * PAR_H for n in bg.shape)
+          and bool(torch.isnan(padded[:PAR_H]).all()),
+          f"the padded tile: {tuple(padded.shape)}, NaN halo strips")
+    entries = [path_entry(stencil, "the distributed step's padded tile",
+                          "K1", padded, PAR_H, mean, k1_launches)]
+    print(f"  one rank peak device memory {peak:.3f} GB", flush=True)
+    dist.destroy_process_group()
+    analysis_a = out_a.cpu().numpy()
+    del out_a, ref, flat, padded
+    torch.cuda.empty_cache()
+
+    # -- (b), (c): PAR_RANKS gloo ranks on this card --
+    ranks, secs = timed(lambda: run_ranks(parallel_rank, PAR_RANKS,
+                                          backend="gloo", timeout=600))
+    r0 = ranks[0]
+    print(f"  {PAR_RANKS} ranks: {secs:.3f} s in all (spawn, set-up, "
+          f"steps); each on {r0['device']}, {r0['backend']}, strips "
+          f"staged through host buffers: {r0['staged']}", flush=True)
+    check(all(r["mesh"] == (2, 2) and r["staged"] for r in ranks),
+          f"make_mesh({PAR_RANKS}): (2, 2), gloo through host buffers")
+    for i, r in enumerate(ranks):
+        report_step(f"rank {i} of {PAR_RANKS}", r["times"], r["parts"])
+    peaks = ", ".join(f"{r['peak_gb']:.3f}" for r in ranks)
+    print(f"  ranks' peak device memory {peaks} GB", flush=True)
+    k1_ranks = [r["k1_step"] for r in ranks]
+    check(k1_ranks == [PAR_REPS] * PAR_RANKS,
+          f"K1 launched once a step on every rank ({k1_ranks})")
+    got = torch.as_tensor(r0["analysis"], device=dev)
+    ok, err = compare(got, torch.as_tensor(analysis_a, device=dev),
+                      (STEP_RTOL, STEP_ATOL))
+    check(ok, f"{PAR_RANKS} ranks: the gathered analysis == one rank's at "
+              f"rtol {STEP_RTOL}, atol {STEP_ATOL} (max|d|={err:.3g})")
+    sharded_launches = np.sum([r["sharded_launches"] for r in ranks], 0)
+    check(list(sharded_launches) == [PAR_RANKS] * 3,
+          f"sharded stencil: K1, K2 and K3 once on every rank "
+          f"({list(sharded_launches)})")
+    for stat, tol in ((mean, (K1_RTOL, K1_ATOL)), (mx, None),
+                      (std, (K3_RTOL, K3_ATOL))):
+        x = bg - 280.0 if stat == std else bg
+        ok, err = compare(torch.as_tensor(r0["sharded"][stat], device=dev),
+                          nops.neighbourhood(x, PAR_H, stat), tol)
+        check(ok, f"sharded_neighbourhood {gt.Statistic(stat).name} h={PAR_H}"
+                  f" on the (2, 2) mesh == the whole grid "
+                  f"({'equal' if tol is None else tol}, max|d|={err:.3g})")
+    # rank 0's padded tile: its neighbours' strips below and right, NaN
+    # above and left
+    ty, tx = (n // 2 + 2 * PAR_H for n in bg.shape)
+    tile = F.pad(bg, (PAR_H,) * 4, value=float("nan"))[:ty, :tx]
+    entries.append(path_entry(stencil, "the sharded stencil's tile", "K2",
+                              tile.contiguous(), PAR_H, mx,
+                              int(sharded_launches[1])))
+    entries.append(path_entry(stencil, "the sharded stencil's tile", "K3",
+                              (tile - 280.0).contiguous(), PAR_H, std,
+                              int(sharded_launches[2])))
+    return entries
+
+
+def write_netcdf(path, lats, lons, elev, nt, field=None):
+    """A NetCDF3 file (scipy) on a (Y, X) grid: time, latitude, longitude,
+    altitude and, when given, air_temperature_2m (T, Y, X)."""
+    from scipy.io import netcdf_file
+    nc = netcdf_file(path, "w", mmap=False)
+    nc.createDimension("time", nt)
+    nc.createDimension("y", lats.shape[0])
+    nc.createDimension("x", lats.shape[1])
+    t = nc.createVariable("time", "d", ("time",))
+    t[:] = 1.7e9 + 3600.0 * np.arange(nt)
+    for name, data, kind in (("latitude", lats, "d"),
+                             ("longitude", lons, "d"),
+                             ("altitude", elev, "f")):
+        v = nc.createVariable(name, kind, ("y", "x"))
+        v[:] = data
+    if field is not None:
+        v = nc.createVariable("air_temperature_2m", "f", ("time", "y", "x"))
+        v[:] = field
+    nc.close()
+
+
+def read_netcdf(path, names):
+    from scipy.io import netcdf_file
+    nc = netcdf_file(path, "r", mmap=False)
+    out = {n: np.array(nc.variables[n][:], dtype=np.float32) for n in names}
+    nc.close()
+    return out
+
+
+def std64(x, h):
+    """Windowed Std of the (T, Y, X) tensor x in float64 on its device,
+    missing values skipped, windows clipped at the edges: the yardstick of
+    Std on a 280 K field (ROADMAP F14)."""
+    x = x.double()
+    ok = torch.isfinite(x)
+    xc = torch.where(ok, x - x[ok].mean(), 0.0)
+    k = 2 * h + 1
+
+    def box(v):
+        return F.avg_pool2d(v[:, None], k, 1, h,
+                            count_include_pad=True)[:, 0] * (k * k)
+
+    n = box(ok.double())
+    var = box(xc * xc) / n - (box(xc) / n) ** 2
+    return torch.where(n > 0.5, var.clamp(min=0).sqrt(), torch.nan)
+
+
+def cli_phase(gt, dev, lats, lons, plats, plons):
+    """Phase 13: `python -m gridpp_tpu_torch` at MEPS size: 949 x 739 x 24
+    leads bilinear to the 2000 x 2000 grid, then the neighbourhood
+    calibrator (Mean, Max, Std h=7), on the card in a subprocess and in
+    this process, against the same argv under host(); then -c oi on a 256^2
+    cut. Returns the `kernels` line's entries."""
+    import os
+    import shutil
+    import tempfile
+
+    from gridpp_tpu_torch import client
+    from gridpp_tpu_torch.api import _common
+    from gridpp_tpu_torch.api.neighbourhood import _centred
+    from gridpp_tpu_torch.ops import stencil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    wrappers = {"K1": stencil.neighbourhood_mean_cuda,
+                "K2": stencil.neighbourhood_minmax_cuda,
+                "K3": stencil.neighbourhood_var_cuda}
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        slats, slons = np.meshgrid(np.linspace(55, 62, MEPS_SHAPE[0]),
+                                   np.linspace(5, 12, MEPS_SHAPE[1]),
+                                   indexing="ij")
+        selev, _ = terrain(slats, slons, fine=False)
+        oelev, _ = terrain(lats, lons, fine=True)
+        rng = np.random.default_rng(10)
+        temp = (288 - 0.0065 * selev + rng.normal(
+            0, 2, (N_LEAD,) + MEPS_SHAPE)).astype(np.float32)
+        src = os.path.join(work, "in.nc")
+        template = os.path.join(work, "template.nc")
+        write_netcdf(src, slats, slons, selev, N_LEAD, temp)
+        write_netcdf(template, lats, lons, oelev, N_LEAD)
+        print(f"  files {time.perf_counter() - t0:.3f} s: in.nc "
+              f"{os.path.getsize(src) / 1e6:.1f} MB ({MEPS_SHAPE} x "
+              f"{N_LEAD} leads), template "
+              f"{os.path.getsize(template) / 1e6:.1f} MB ({lats.shape})",
+              flush=True)
+
+        def argv(out):
+            a = [src, out]
+            for name, stat in CLI_VARS.items():
+                a += ["-vi", "air_temperature_2m", "-v", name, "-d",
+                      "bilinear"]
+                if stat:
+                    a += ["-c", "neighbourhood", f"radius={CLI_H}",
+                          f"stat={stat}"]
+            return a
+
+        def run(route):
+            out = os.path.join(work, f"out_{route}.nc")
+            shutil.copy(template, out)
+            t = time.perf_counter()
+            if route == "subprocess":
+                res = subprocess.run(
+                    [sys.executable, "-m", "gridpp_tpu_torch"] + argv(out),
+                    cwd=root, capture_output=True, text=True, timeout=900)
+                check(res.returncode == 0,
+                      f"python -m gridpp_tpu_torch on the card: exit "
+                      f"{res.returncode} {res.stderr[-2000:]}")
+                print(f"  its output: {res.stdout.strip()}", flush=True)
+            elif route == "host":
+                with _common.host():
+                    check(client.main(argv(out)) == 0, "main under host()")
+            else:
+                check(client.main(argv(out)) == 0, "main on the card")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            res = read_netcdf(out, CLI_VARS)
+            print(f"  {route}: {secs:.3f} s wall, output "
+                  f"{os.path.getsize(out) / 1e6:.1f} MB", flush=True)
+            os.remove(out)
+            return res
+
+        card = run("subprocess")
+        host = run("host")
+        for w in wrappers.values():
+            w.launches = 0
+        card2 = run("card")
+        launches = {k: w.launches for k, w in wrappers.items()}
+        check(launches == {"K1": N_LEAD, "K2": N_LEAD, "K3": N_LEAD},
+              f"in-process card run: one K1, K2 and K3 launch a lead "
+              f"({launches})")
+        same = {n: bool(np.array_equal(card[n], card2[n], equal_nan=True))
+                for n in CLI_VARS}
+        print(f"  subprocess and in-process card outputs equal: {same}",
+              flush=True)
+        for name in CLI_VARS:
+            check(card[name].shape == (N_LEAD,) + lats.shape
+                  and bool(np.isfinite(card[name]).all()),
+                  f"{name}: {card[name].shape}, finite")
+        tens = {r: {n: torch.as_tensor(v[n], device=dev) for n in CLI_VARS}
+                for r, v in (("card", card), ("host", host))}
+        for name, tol in (("t_bilinear", DOWN_TOL),
+                          ("t_mean", (K1_RTOL, K1_ATOL)), ("t_max", None)):
+            ok, err = compare(tens["card"][name], tens["host"][name], tol)
+            check(ok, f"{name}: card == host() "
+                      f"({'equal' if tol is None else tol}, max|d|={err:.3g})")
+        # Std of a 280 K field (F14): each route against float64 on its
+        # own bilinear field
+        errs = {}
+        for r in ("card", "host"):
+            want = std64(tens[r]["t_bilinear"], CLI_H)
+            d = (tens[r]["t_std"].double() - want).abs()[
+                torch.isfinite(want)]
+            errs[r] = [float(torch.quantile(d[::7], q)) for q in
+                       LR_F64_QUANTILES] + [float(d.max())]
+        _, err = compare(tens["card"]["t_std"], tens["host"]["t_std"], None)
+        check(all(c <= LR_F64_FACTOR * h for c, h in zip(errs["card"],
+                                                          errs["host"])),
+              f"t_std (F14) against float64, error quantiles "
+              f"{LR_F64_QUANTILES} and max: card {errs['card']}, host "
+              f"{errs['host']}: the card's at most {LR_F64_FACTOR}x the "
+              f"host's (card vs host max|d|={err:.3g})")
+
+        # the kernels at the CLI's shapes: lead 0 of the card's bilinear
+        # field, as the calibrator uploads it
+        x = tens["card"]["t_bilinear"][0].contiguous()
+        k = 2 * CLI_H + 1
+        entries = [
+            path_entry(stencil, "the CLI's neighbourhood calibrator",
+                       "K1", x, CLI_H, int(gt.Mean), launches["K1"],
+                       library=lambda: F.avg_pool2d(
+                           x[None, None], k, 1, CLI_H,
+                           count_include_pad=False)[0, 0]),
+            path_entry(stencil, "the CLI's neighbourhood calibrator",
+                       "K2", x, CLI_H, int(gt.Max), launches["K2"],
+                       library=lambda: F.max_pool2d(x[None, None], k, 1,
+                                                    CLI_H)[0, 0]),
+            path_entry(stencil, "the CLI's neighbourhood calibrator",
+                       "K3", _centred(x), CLI_H, int(gt.Std),
+                       launches["K3"])]
+        del tens, card, card2, host
+
+        # -- -c oi on a cut, Box-Cox: its back-transform smoothing is K1 --
+        m, nt = CLI_OI_CUT, CLI_OI_LEADS
+        src_oi = os.path.join(work, "in_oi.nc")
+        write_netcdf(src_oi, slats, slons, selev, nt, temp[:nt])
+        cut = os.path.join(work, "cut.nc")
+        write_netcdf(cut, lats[:m, :m], lons[:m, :m], oelev[:m, :m], nt)
+        inside = ((plats <= lats[m - 1, 0]) & (plons <= lons[0, m - 1]))
+        idx = gt.Grid(lats[:m, :m], lons[:m, :m]).nearest_map(
+            plats[inside], plons[inside])
+        st_elev = oelev[:m, :m].reshape(-1)[idx]
+        obs = 288 - 0.0065 * st_elev + rng.normal(0, 1, idx.size)
+        par = os.path.join(work, "obs.txt")
+        with open(par, "w") as fh:
+            fh.write("lat lon elev t\n")
+            for row in zip(plats[inside], plons[inside], st_elev, obs):
+                fh.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+        outs = {}
+        for route in ("card", "host"):
+            out = os.path.join(work, f"oi_{route}.nc")
+            shutil.copy(cut, out)
+            a = [src_oi, out, "-v", "air_temperature_2m", "-d",
+                 "bilinear", "-c", "oi"] + CLI_OI_OPTS + ["-p", par]
+            wrappers["K1"].launches = 0
+            t0 = time.perf_counter()
+            if route == "host":
+                with _common.host():
+                    check(client.main(a) == 0, "-c oi under host()")
+            else:
+                check(client.main(a) == 0, "-c oi on the card")
+            secs = time.perf_counter() - t0
+            outs[route] = read_netcdf(out, ["air_temperature_2m"])[
+                "air_temperature_2m"]
+            print(f"  -c oi {' '.join(CLI_OI_OPTS)}, {m}x{m} x {nt} "
+                  f"leads, {idx.size} stations, {route}: {secs:.3f} s, K1 "
+                  f"launches {wrappers['K1'].launches}", flush=True)
+            if route == "card":
+                k1_oi = wrappers["K1"].launches
+        d = float(np.nanmax(np.abs(outs["card"] - outs["host"])))
+        check(bool(np.isfinite(outs["card"]).all()) and d <= CARD_CPU_TOL
+              and k1_oi == 4 * nt,
+              f"-c oi: card vs host() max|d|={d:.3g} (<= {CARD_CPU_TOL}), "
+              f"finite, K1 launched {k1_oi} times (radii 25, 5, 3, 3 a "
+              "lead)")
+        return entries
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
+    t_start = time.perf_counter()
+    laps = [t_start]
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this run needs the card")
     smi = subprocess.run(
@@ -1611,6 +2176,7 @@ def main():
                 "K5": stencil.neighbourhood_members_cuda}
 
     # -- 2. build --
+    lap(laps)
     print("[build]", flush=True)
 
     def timed_build(name):
@@ -1652,6 +2218,7 @@ def main():
          stencil.neighbourhood_var_plain, (K3_RTOL, K3_ATOL))
         for stat in stencil.VAR_STATS]
     err = dict.fromkeys(wrappers, 0.0)
+    lap(laps)
     print("[K1, K2, K3 vs plain versions]", flush=True)
     for shape, h, nan_frac in cases:
         # the h >= 32 and the sparse-NaN cases on a 280 K field: wide
@@ -1676,6 +2243,7 @@ def main():
                       f"max|d|={e:.3g}")
             err[k] = max(err[k], e)
 
+    lap(laps)
     print("[K4 vs plain version]", flush=True)
     for shape, h, nan_frac in cases:
         if len(shape) != 2 or min(shape) == 1 or nan_frac < 0.01:
@@ -1731,6 +2299,7 @@ def main():
                                                    thr)
     check(bool(torch.isnan(got).all()), "K4 NaN quantile: all NaN")
 
+    lap(laps)
     print("[K5 vs plain version and K1/K2 per member]", flush=True)
     xm = torch.as_tensor(field(rng, (2000, 2000, 10), 0.1), device=dev)
     # EnSI's input: a NaN-free normal(280, 5) ensemble
@@ -1761,6 +2330,7 @@ def main():
                           f"max|d|={e:.3g}")
     del k5_cases
 
+    lap(laps)
     print("[wide route vs plain versions]", flush=True)
     wide_err = 0.0
     for w in wrappers.values():
@@ -1836,6 +2406,7 @@ def main():
           f"the wide cases took the plan's routes: {wide_calls}")
 
     # -- 4. timings --
+    lap(laps)
     print("[timings, CUDA events]", flush=True)
     lats, lons, plats, plons, background, noise = bench_problem()
     bg0 = torch.as_tensor(background, device=dev)
@@ -1999,6 +2570,7 @@ def main():
     del planes, k3_planes
 
     # -- 5. the serving path, Mean smoothing --
+    lap(laps)
     print("[Pipeline 2000x2000, 10k obs, Mean h=7]", flush=True)
     p = plats.size
     grid = gt.Grid(lats, lons)
@@ -2040,6 +2612,7 @@ def main():
           " GB", flush=True)
     del pipe
 
+    lap(laps)
     print("[Pipeline 2000x2000, 10k obs, Mean h=100: K1's wide route]",
           flush=True)
     pipe = pipeline(mean, 100)
@@ -2054,6 +2627,7 @@ def main():
           f"{wide_launches} wide, {n_cycles} cycles)")
 
     # -- 6. the neighbourhood-statistics path --
+    lap(laps)
     print("[neighbourhood statistics: Pipeline Max h=7, Std, quantile_fast, "
           "members]", flush=True)
     del pipe
@@ -2103,6 +2677,7 @@ def main():
           and mem.shape == (2000, 2000, 10), "members: (2000, 2000, 10)")
 
     # -- 7. ensemble OI --
+    lap(laps)
     print(f"[ensemble OI 2000x2000x{N_ENS}, 10k obs: EnsiPipeline, "
           "MultiEnsiPipeline]", flush=True)
     del pipe
@@ -2118,6 +2693,7 @@ def main():
           flush=True)
 
     # -- 8. card against CPU --
+    lap(laps)
     print("[card vs CPU, 256x256 cut]", flush=True)
     m = 256
     inside = ((plats >= lats[0, 0]) & (plats <= lats[m - 1, 0])
@@ -2180,6 +2756,7 @@ def main():
               f"{name} ({label}): card vs CPU max|d|={d:.3g}")
 
     # -- 9. gridpp's OI API on the card --
+    lap(laps)
     print(f"[gridpp OI API 2000x2000, 10k obs, {N_ENS} members: device "
           "route]", flush=True)
     torch.cuda.empty_cache()
@@ -2192,6 +2769,7 @@ def main():
     print(f"  API phase {time.perf_counter() - t0:.3f} s", flush=True)
 
     # -- 10. downscale, gradient-correct, calibrate --
+    lap(laps)
     print(f"[downscale {MEPS_SHAPE[0]}x{MEPS_SHAPE[1]}x{N_LEAD} -> 2000x2000 "
           f"and {plats.size} points, gradients, curves: device route]",
           flush=True)
@@ -2202,6 +2780,7 @@ def main():
     print(f"  downscale phase {time.perf_counter() - t0:.3f} s", flush=True)
 
     # -- 11. the rest of gridpp's numpy API --
+    lap(laps)
     print("[gridpp numpy API 2000x2000, 10k points: LDC, search, smart, "
           "window, masking, diagnostics, verification: device route]",
           flush=True)
@@ -2209,6 +2788,31 @@ def main():
     t0 = time.perf_counter()
     score_k1 = api_slice_phase(gt, dev, lats, lons, plats, plons)
     print(f"  API slice phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # -- 12. the parallel layer --
+    lap(laps)
+    print(f"[parallel 2000x2000, {plats.size} obs: one NCCL rank, "
+          f"{PAR_RANKS} gloo ranks on the card, the sharded stencil]",
+          flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parallel_k = parallel_phase(gt, dev)
+    print(f"  parallel phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # -- 13. the command-line client --
+    lap(laps)
+    print(f"[python -m gridpp_tpu_torch: MEPS {MEPS_SHAPE[0]}x{MEPS_SHAPE[1]}"
+          f"x{N_LEAD} -> 2000x2000, bilinear + neighbourhood Mean, Max, Std "
+          f"h={CLI_H}; -c oi on a {CLI_OI_CUT}^2 cut]", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli_k = cli_phase(gt, dev, lats, lons, plats, plons)
+    print(f"  CLI phase {time.perf_counter() - t0:.3f} s", flush=True)
+    lap(laps)
+    print(f"  the script {time.perf_counter() - t_start:.3f} s; each phase "
+          f"(the build first): "
+          f"{', '.join(f'{b - a:.1f}' for a, b in zip(laps[1:], laps[2:]))} "
+          "s", flush=True)
 
     sources = {"K1": ("neighbourhood_mean", f"{PALLAS}:301"),
                "K2": ("neighbourhood_minmax", f"{PALLAS}:364"),
@@ -2238,6 +2842,9 @@ def main():
     kernels.append(lr_k1)
     # K1 on neighbourhood_score's path (phase 11), at each halfwidth
     kernels.extend(score_k1)
+    # K1 on the distributed step's padded tile, K2 and K3 on the sharded
+    # stencil's tiles (phase 12); K1, K2 and K3 in the CLI (phase 13)
+    kernels.extend(parallel_k + cli_k)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

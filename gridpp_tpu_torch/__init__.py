@@ -24,8 +24,11 @@ neighbourhood search, smart neighbours and static correlations, the
 running window, gridding, fill and doping, the ensemble masking
 downscalers, the meteorological diagnostics, fuzzy verification
 (`neighbourhood_score`, K1 on the card) and the SWIG typemap test
-functions. The top-level names follow gridpp_tpu's: the numpy API here,
-the tensor ops under gridpp_tpu_torch.ops.
+functions; the parallel layer on torch.distributed
+(gridpp_tpu_torch.parallel) and the command-line client
+(gridpp_tpu_torch.client, `python -m gridpp_tpu_torch`). The top-level
+names follow gridpp_tpu's: the numpy API here, the tensor ops under
+gridpp_tpu_torch.ops.
 
 The top-level API functions run on the host (the CPU, with the native C++
 OI solvers, the LinearRegression gradient and the curves), as gridpp_tpu's

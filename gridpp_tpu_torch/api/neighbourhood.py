@@ -1,11 +1,16 @@
 """Neighbourhood statistics, numpy API (gridpp_tpu/api/neighbourhood.py;
 reference src/api/neighbourhood.cpp).
 
-numpy in, numpy out, on the host, as in the reference (whose bindings work
-in host memory): each function takes gridpp_tpu's route, the native host
-kernels (native/) where gridpp_tpu uses them, else the port's tensor ops
-(ops/neighbourhood.py) on CPU tensors. The device entry points are the ops
-themselves and `Pipeline`.
+numpy in, numpy out. On the host (`_common.on_host()`: the top-level
+functions, `host()`, or no card) each function takes gridpp_tpu's route, the
+native host kernels (native/) where gridpp_tpu uses them, else the port's
+tensor ops (ops/neighbourhood.py) on CPU tensors. Called through this module
+with a card present, `neighbourhood` (Mean, Sum, Count, Min, Max, Std and
+Variance, with the ensemble collapse before them) and
+`neighbourhood_quantile_fast` run on `api_device()`, as gridpp_tpu's run
+`ops.neighbourhood` on its default backend: one upload, the ops (kernels
+K1-K4 on the card), one copy down. Median, RandomChoice and the exact
+quantiles have no card kernel and keep their host routes.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from .. import native
 from ..constants import MV, Statistic
 from ..ops import neighbourhood as ops
 from ..ops import stats as stats_ops
-from ._common import asarray_f32
+from ._common import api_device, asarray_f32, on_host, upload
 from .utils import calc_even_quantiles, calc_statistic
 
 __all__ = [
@@ -28,6 +33,8 @@ __all__ = [
 
 _MEANSUM = (Statistic.Mean, Statistic.Sum, Statistic.Count, Statistic.Std,
             Statistic.Variance)
+# the statistics of the card stencils K1-K3
+_DEVICE_STATS = _MEANSUM + (Statistic.Min, Statistic.Max)
 
 
 def _check_halfwidth(halfwidth):
@@ -65,6 +72,16 @@ def _host_ops(fn, input: np.ndarray, *args) -> np.ndarray:
     return fn(torch.from_numpy(np.ascontiguousarray(input)), *args).numpy()
 
 
+def _centred(x: torch.Tensor) -> torch.Tensor:
+    """x less the mean of its finite values. Std and Variance do not move
+    with a shift, but K3's one-pass E[x^2] - E[x]^2 in f32 keeps the
+    digits of the spread only near 0: on a 280 K field it loses about four
+    (0.03 K off the host route's double sums on a Std of ~1 K)."""
+    ok = torch.isfinite(x)
+    total = torch.where(ok, x, 0.0).sum(dtype=torch.float64)
+    return x - (total / ok.sum().clamp(min=1)).to(x.dtype)
+
+
 def neighbourhood(input, halfwidth, statistic):
     """Moving-window statistic of a (Y, X) field, or of a (Y, X, E)
     ensemble after collapsing its members with the same statistic
@@ -78,6 +95,14 @@ def neighbourhood(input, halfwidth, statistic):
     input = asarray_f32(input)
     if input.size == 0:
         return np.zeros((0, 0), np.float32)
+    if input.ndim in (2, 3) and statistic in _DEVICE_STATS and not on_host():
+        dev = api_device()
+        x = upload(input, dev)
+        if x.dim() == 3:
+            x = stats_ops.nan_statistic(x, statistic, axis=-1)
+        if statistic in (Statistic.Std, Statistic.Variance):
+            x = _centred(x)
+        return ops.neighbourhood(x, h, statistic).cpu().numpy()
     if input.ndim == 3:
         if statistic == Statistic.RandomChoice:
             flat = np.apply_along_axis(
@@ -172,6 +197,12 @@ def neighbourhood_quantile_fast(input, quantile, halfwidth, thresholds):
         raise ValueError("All quantiles must be >= 0 and <= 1")
     if thresholds.size == 0:
         return np.full((ny, nx), MV, np.float32)
+    if not on_host():
+        dev = api_device()
+        qt = float(q) if not np.ndim(q) else upload(q, dev)
+        return ops.neighbourhood_quantile_fast(
+            upload(input, dev), qt, int(halfwidth),
+            upload(thresholds, dev)).cpu().numpy()
     if input.ndim == 2:
         host = native.nb_quantile_fast(
             input, int(halfwidth), thresholds,

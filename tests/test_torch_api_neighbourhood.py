@@ -219,3 +219,125 @@ def test_ops_route_without_native_engine(stat, monkeypatch):
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(gt.neighbourhood_quantile(x, 0.4, 2),
                                gj.neighbourhood_quantile(x, 0.4, 2), **TOL)
+
+
+# -- the module functions' device route ---------------------------------
+# Called through gridpp_tpu_torch.api.neighbourhood with a card present
+# (`_common.on_host()` False), neighbourhood and neighbourhood_quantile_fast
+# run ops.* on `api_device()`, as gridpp_tpu's module functions run
+# ops.neighbourhood on their default backend. Here on_host is patched to
+# False, so the ops run on CPU tensors (the kernels' plain versions), and
+# are held to gridpp_tpu's ops at the reference's bars.
+
+from gridpp_tpu.ops import neighbourhood as jops  # noqa: E402
+
+from _torch_helpers import spy  # noqa: E402
+
+import gridpp_tpu_torch.api.neighbourhood as tnb  # noqa: E402
+
+K3_TOL = dict(rtol=2e-5, atol=2e-3)     # tests/test_pallas_stencil.py:220
+
+
+@pytest.fixture
+def device_route(monkeypatch):
+    """on_host False in the port's api.neighbourhood; returns the spies of
+    its ops and native entry points."""
+    from gridpp_tpu_torch import native
+    monkeypatch.setattr(tnb, "on_host", lambda: False)
+    return {name: spy(monkeypatch, mod, name) for mod, name in (
+        (tnb.ops, "neighbourhood"), (tnb.ops, "neighbourhood_quantile_fast"),
+        (native, "nb_meansum"), (native, "nb_brute"),
+        (native, "nb_quantile_fast"))}
+
+
+@pytest.mark.parametrize("stat", [S.Mean, S.Sum, S.Count, S.Min, S.Max,
+                                  S.Std, S.Variance])
+@pytest.mark.parametrize("ens", [False, True])
+def test_module_neighbourhood_device_route(device_route, stat, ens):
+    x = _field((25, 30, 4) if ens else (25, 30), seed=int(stat) + 3)
+    got = tnb.neighbourhood(x, 2, stat)
+    assert len(device_route["neighbourhood"]) == 1
+    assert not device_route["nb_meansum"] and not device_route["nb_brute"]
+    xj = jnp.asarray(x)
+    if ens:
+        xj = jstats.nan_statistic(xj, int(stat), axis=-1)
+    want = np.asarray(jops.neighbourhood(xj, 2, int(stat)))
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    assert got.shape == want.shape == (25, 30)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    tol = K3_TOL if stat in (S.Std, S.Variance) else TOL
+    np.testing.assert_allclose(got, want, **tol)
+    # the deprecated alias inherits the route
+    np.testing.assert_array_equal(tnb.neighbourhood_ens(x, 2, stat), got)
+
+
+@pytest.mark.parametrize("quantile", ["scalar", "field"])
+@pytest.mark.parametrize("ens", [False, True])
+def test_module_quantile_fast_device_route(device_route, quantile, ens):
+    x = _field((20, 24, 3) if ens else (20, 24), seed=10)
+    thr = gj.get_neighbourhood_thresholds(x, 7)
+    q = 0.3 if quantile == "scalar" else np.random.default_rng(1).uniform(
+        0, 1, (20, 24)).astype(np.float32)
+    got = tnb.neighbourhood_quantile_fast(x, q, 2, thr)
+    assert len(device_route["neighbourhood_quantile_fast"]) == 1
+    assert not device_route["nb_quantile_fast"]
+    want = np.asarray(jops.neighbourhood_quantile_fast(
+        jnp.asarray(x), jnp.asarray(q), 2, jnp.asarray(thr)))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        tnb.neighbourhood_quantile_ens_fast(x, q, 2, thr), got)
+
+
+def test_module_device_route_leaves_host_only_statistics(device_route):
+    """Median, RandomChoice, the exact quantiles and the brute force have
+    no card kernel: they keep their host routes."""
+    x = _field((15, 18), seed=12)
+    np.testing.assert_array_equal(tnb.neighbourhood(x, 2, S.Median),
+                                  gt.neighbourhood(x, 2, S.Median))
+    tnb.neighbourhood(x, 2, S.RandomChoice)
+    tnb.neighbourhood_quantile(x, 0.4, 2)
+    tnb.neighbourhood_brute_force(x, 2, S.Mean)
+    assert not device_route["neighbourhood"]
+    assert len(device_route["nb_brute"]) == 4   # top-level Median too
+
+
+def test_top_level_and_host_keep_their_routes(monkeypatch):
+    """The top-level functions and calls under host() take the native
+    routes bit for bit with gridpp_tpu, whatever the device."""
+    from gridpp_tpu_torch.api import _common
+    monkeypatch.setattr(_common, "api_device",
+                        lambda: (torch.device("cpu") if _common._HOST.get()
+                                 else torch.device("meta")))
+    calls = spy(monkeypatch, tnb.ops, "neighbourhood")
+    x = _field((25, 30), seed=13)
+    for stat in (S.Mean, S.Std):
+        np.testing.assert_array_equal(gt.neighbourhood(x, 2, stat),
+                                      gj.neighbourhood(x, 2, stat))
+        with _common.host():
+            np.testing.assert_array_equal(tnb.neighbourhood(x, 2, stat),
+                                          gj.neighbourhood(x, 2, stat))
+    assert not calls
+
+
+def test_std_device_route_is_centred():
+    """ROADMAP F14: Std of a field far from 0 through f32 squares (the
+    native host route, as gridpp's C++) keeps few digits of the spread; the
+    device route takes the field less its mean first, which Std does not
+    move, and lies closer to float64 than the host route on a 280 K
+    field."""
+    rng = np.random.default_rng(2)
+    x = (281 + np.cumsum(rng.normal(0, 0.3, (60, 70)), axis=1)).astype(
+        np.float32)
+    h = 3
+    xc = x.astype(np.float64) - x.mean(dtype=np.float64)
+    pad = np.pad(xc, h, constant_values=np.nan)
+    win = np.lib.stride_tricks.sliding_window_view(pad, (7, 7))
+    want = np.nanstd(win, axis=(-2, -1))
+    host = gt.neighbourhood(x, h, S.Std)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnb, "on_host", lambda: False)
+        dev = tnb.neighbourhood(x, h, S.Std)
+    e_host = np.abs(host - want).max()
+    e_dev = np.abs(dev - want).max()
+    assert e_dev < 1e-4 < e_host, (e_dev, e_host)

@@ -1079,3 +1079,122 @@ def test_slice_device_routes_make_no_cpu_tensor(dev):
         with torch.device(dev):
             seen, copies = _cpu_results(lambda: getattr(mod, fn)(*args))
         assert not seen and copies == 1, (name, seen, copies)
+
+
+# -- the numpy neighbourhood API's card route, the parallel layer and the
+# command-line client on the card --
+
+@pytest.mark.parametrize("stat", [gt.Mean, gt.Sum, gt.Count, gt.Min, gt.Max,
+                                  gt.Std, gt.Variance])
+@pytest.mark.parametrize("ens", [False, True])
+def test_module_neighbourhood_on_card(dev, stat, ens):
+    """api.neighbourhood.neighbourhood called unpinned runs on the card: one
+    launch of K1, K2 or K3, equal to its host route at the kernel's bar,
+    with no CPU tensor before its one copy down."""
+    from gridpp_tpu_torch.api import _common
+    from gridpp_tpu_torch.api import neighbourhood as tnb
+    x = _field((130, 257, 5) if ens else (130, 257), seed=int(stat))
+    wrapper, tol = KERNEL_OF[int(stat)]
+    wrapper.launches = 0
+    seen, copies = _cpu_results(lambda: tnb.neighbourhood(x, 7, stat))
+    assert not seen and copies == 1, (seen, copies)
+    assert wrapper.launches == 1
+    got = tnb.neighbourhood(x, 7, stat)
+    with _common.host():
+        want = tnb.neighbourhood(x, 7, stat)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    if tol is None:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_array_equal(gt.neighbourhood(x, 7, stat), want)
+
+
+@pytest.mark.parametrize("quantile", ["scalar", "field"])
+@pytest.mark.parametrize("ens", [False, True])
+def test_module_quantile_fast_on_card(dev, quantile, ens):
+    """api.neighbourhood.neighbourhood_quantile_fast called unpinned runs
+    on the card (a 2-D field with one quantile: K4; else the threshold
+    planes smoothed by K1) and equals its host route within 1e-5."""
+    from gridpp_tpu_torch.api import _common
+    from gridpp_tpu_torch.api import neighbourhood as tnb
+    x = _field((130, 257, 3) if ens else (130, 257), seed=31)
+    thr = gt.get_neighbourhood_thresholds(x, 11)
+    q = 0.3 if quantile == "scalar" else np.random.default_rng(2).uniform(
+        0, 1, (130, 257)).astype(np.float32)
+    stencil.neighbourhood_quantile_fast_cuda.launches = 0
+    stencil.neighbourhood_mean_cuda.launches = 0
+    got = tnb.neighbourhood_quantile_fast(x, q, 7, thr)
+    k4 = not ens and quantile == "scalar"
+    assert stencil.neighbourhood_quantile_fast_cuda.launches == int(k4)
+    assert stencil.neighbourhood_mean_cuda.launches == int(not k4)
+    with _common.host():
+        want = tnb.neighbourhood_quantile_fast(x, q, 7, thr)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_distributed_step_on_card(dev):
+    """Two gloo ranks whose tiles live on the card (strips staged through
+    host buffers), on global_mesh(): the gathered analysis equals the
+    one-rank step on the CPU at tests/test_distributed.py:80's bar, and
+    each rank launched K1 once."""
+    import _torch_parallel_ranks as ranks
+
+    from gridpp_tpu_torch.parallel import make_mesh
+    from gridpp_tpu_torch.parallel.dryrun import run_ranks
+    got = run_ranks(ranks.host_grid, 2, None, None, timeout=300)
+    one = make_mesh(1, device="cpu")
+    want = ranks.distributed_step(one, one.block_slices)
+    for shape, _, _, _, out, launches in got:
+        assert shape == (2, 1) and launches == 1
+        np.testing.assert_allclose(out, want, rtol=2e-5, atol=2e-4)
+
+
+def test_dryrun_multichip_on_card(dev):
+    from gridpp_tpu_torch.parallel.dryrun import dryrun_multichip
+    dryrun_multichip(2, timeout=300)
+
+
+def test_cli_on_card(dev, tmp_path):
+    """python -m gridpp_tpu_torch's main on the card against the same argv
+    under host(): bilinear rtol 1e-6, atol 1e-4 (equal here), Mean and
+    the window at K1's bars, Max and the clamp equal, Std (a 280 K field,
+    ROADMAP F14) no further from float64 than the host route; one K1, K2
+    and K3 launch a lead."""
+    import shutil
+
+    from _torch_cli_files import (VARIABLES, cli_argv, read_outputs,
+                                  window_std64, write_files)
+
+    from gridpp_tpu_torch import client
+    from gridpp_tpu_torch.api import _common
+    write_files(tmp_path / "in.nc", tmp_path / "template.nc")
+    outs = {}
+    for route in ("card", "host"):
+        out = tmp_path / f"out_{route}.nc"
+        shutil.copy(tmp_path / "template.nc", out)
+        for k in ("mean", "minmax", "var"):
+            getattr(stencil, f"neighbourhood_{k}_cuda").launches = 0
+        if route == "card":
+            assert client.main(cli_argv(tmp_path / "in.nc", out)) == 0
+            assert [getattr(stencil, f"neighbourhood_{k}_cuda").launches
+                    for k in ("mean", "minmax", "var")] == [3, 3, 3]
+        else:
+            with _common.host():
+                assert client.main(cli_argv(tmp_path / "in.nc", out)) == 0
+        outs[route] = read_outputs(out)
+    card, host = outs["card"], outs["host"]
+    for name, (_, bars) in VARIABLES.items():
+        if name == "t_std":
+            continue
+        if name in ("t_max", "t_qc", "t_bilinear"):
+            np.testing.assert_array_equal(card[name], host[name])
+        else:
+            np.testing.assert_allclose(card[name], host[name],
+                                       equal_nan=True, **bars)
+    want = window_std64(host["t_bilinear"], 3)
+    ok = np.isfinite(want)
+    e_card = np.abs(card["t_std"] - want)[ok].max()
+    e_host = np.abs(host["t_std"] - want)[ok].max()
+    assert e_card <= e_host, (e_card, e_host)

@@ -27,6 +27,10 @@ def test_import_pulls_in_no_jax():
             "import gridpp_tpu_torch.api.gridding, gridpp_tpu_torch.api.fill\n"
             "import gridpp_tpu_torch.api.masking, gridpp_tpu_torch.api.verif\n"
             "import gridpp_tpu_torch.api.diagnostics\n"
+            "import gridpp_tpu_torch.client, gridpp_tpu_torch.parallel\n"
+            "import gridpp_tpu_torch.parallel.distributed\n"
+            "import gridpp_tpu_torch.parallel.dryrun\n"
+            "import gridpp_tpu_torch.client.schemes\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
             "                                            'gridpp_tpu.')))\n"
@@ -55,6 +59,31 @@ def test_public_names_are_gridpp_tpus():
     assert len(names["gridpp_tpu"]) > 150
     assert names["gridpp_tpu"] - names["gridpp_tpu_torch"] == set()
     assert names["gridpp_tpu_torch"] - names["gridpp_tpu"] == set()
+
+
+@pytest.mark.parametrize("sub", ["parallel", "client"])
+def test_subpackage_names_are_gridpp_tpus(sub):
+    """gridpp_tpu_torch.parallel and .client give every public name of
+    gridpp_tpu's, and so do their modules' `__all__`, each imported alone
+    in a fresh process."""
+    code = ("import json, importlib, pkgutil\n"
+            "pkg = importlib.import_module('{0}.{1}')\n"
+            "out = {{'': [n for n in dir(pkg) if not n.startswith('_')]}}\n"
+            "for m in pkgutil.iter_modules(pkg.__path__):\n"
+            "    mod = importlib.import_module(f'{0}.{1}.{{m.name}}')\n"
+            "    out[m.name] = sorted(getattr(mod, '__all__', []))\n"
+            "print(json.dumps(out))\n")
+    names = {}
+    for pkg in ("gridpp_tpu", "gridpp_tpu_torch"):
+        res = subprocess.run([sys.executable, "-c", code.format(pkg, sub)],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        assert res.returncode == 0, res.stderr
+        names[pkg] = json.loads(res.stdout.strip().splitlines()[-1])
+    ref, port = names["gridpp_tpu"], names["gridpp_tpu_torch"]
+    assert set(ref[""]) == set(port[""])
+    for mod, public in ref.items():
+        assert set(public) <= set(port[mod]), mod
 
 
 @pytest.mark.parametrize("name", [
