@@ -1,6 +1,7 @@
 """Smoke run of gridpp_tpu_torch's serving, neighbourhood-statistics, OI
 API, downscaling/calibration paths, the rest of gridpp's numpy API, the
-parallel layer and the command-line client on one CUDA card.
+parallel layer, the command-line client and the port's tools on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -190,14 +191,31 @@ Run from the root of a checkout. In order it:
    its back-transform smoothing is four K1 launches a lead) on a 256 x 256
    cut, 2 leads, the ~150 stations inside it: card vs host() within 1e-3.
 
+14. the port's tools (gridpp_tpu_torch.tools), each as its
+   `python -m gridpp_tpu_torch.tools.<name>` runs it: the all-API smoke on
+   both routes (every top-level call leaves the card untouched, every
+   device-route call allocates on it, the entry points launch K1-K5;
+   SMOKE PASS, no uncovered name); the parity sweep over seeds 0-9, every
+   pipeline on the card against its API function on the host route and
+   on the card route within 1e-2 at every gridpoint; the per-operator
+   table at -s 1 -n 3 on the host route and the card route, each card
+   row within its bar of the host's, launch counts set to 0 before it:
+   K1 at 10000 x 10000 (the row's zeros; also on a 280 K field with 10%
+   NaN), K2 and K4 at 2000 x 2000 held against their plain versions,
+   timed beside them, avg_pool2d and max_pool2d; the scaling harness, 2
+   gloo CPU ranks at 512 x 512 with 2,000 obs, its first step timed (the
+   reference times three after a warm one), the gathered analysis equal
+   to one rank's bit for bit.
+
 Any failed check raises. The line before the last is a JSON record of the
 kernels (K1-K5; K1's launches those of phase 5's h=7 cycles and phase
 10's LinearRegression call, K3's those of phase 6's Std cycles and call,
 K4's phase 6's two calls; the wide route of K1, whose launches are phase
 5's h=100 cycles; K1 on phase 11's neighbourhood_score path, one entry a
 halfwidth; K1 on phase 12's padded tile, K2 and K3 on its sharded tiles,
-K1, K2 and K3 in phase 13's CLI); the last line is {"ok": true, "device":
-{...}}. Each phase's seconds are printed as the next begins.
+K1, K2 and K3 in phase 13's CLI; K1, K2 and K4 in phase 14's table); the
+last line is {"ok": true, "device": {...}}. Each phase's seconds are
+printed as the next begins.
 """
 from __future__ import annotations
 
@@ -2145,6 +2163,144 @@ def cli_phase(gt, dev, lats, lons, plats, plons):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 14: the port's tools on the card -----------------------------------
+SWEEP_SEEDS = range(10)          # the reference's round-5 sweep
+TABLE_S, TABLE_N = 1.0, 3        # the table's -s and -n
+# the scaling harness at its defaults (512^2, 2000 obs) on 2 ranks, timed
+# over its first step: a step takes ~50 s on one CPU core
+SCALE_HOSTS = 2
+
+
+def qf_entry(stencil, nops, label, x, q, h, thr, launches):
+    """The `kernels` line's entry of K4 on a path's (Y, X) field x: held
+    against its plain version bit for bit, timed beside it, with its
+    bound (phase 4's work)."""
+    def card():
+        return stencil.neighbourhood_quantile_fast_cuda(x, q, h, h, thr)
+
+    def plain():
+        return nops._quantile_fast_xla(x, q, h, thr)
+
+    ok, err = compare(card(), plain(), None)
+    check(ok, f"K4 on {label} {tuple(x.shape)} h={h} vs plain: bit for bit "
+              f"(max|d|={err:.3g})")
+    cells, t = x.numel(), thr.numel()
+    lanes = 32 // stencil.qf_lane_bits((2 * h + 1) ** 2)
+    entry = {"name": f"neighbourhood_quantile_fast_cuda ({label})",
+             "route": "cuda",
+             "source": "gridpp_tpu_torch/csrc/neighbourhood_wide.cu",
+             "replaces": f"{PALLAS}:465", "launches": launches,
+             "max_abs_err": err, "ms": event_ms(card)}
+    entry.update(device_ms=device_ms(card, at_least=0.5 * entry["ms"]),
+                 plain_ms=event_ms(plain, reps=5), library_ms=None)
+    entry["bound_ms"], entry["bound_by"] = bound_ms(
+        8 * cells + 4 * t,
+        cells * (2 * (t + 1) + 4 * -(-(t + 1) // lanes) + 3 * t), I32_OPS_S)
+    dev_ms = entry["device_ms"]
+    print(f"  K4 on {label} {tuple(x.shape)}, h={h}: kernel "
+          f"{entry['ms']:.4f} ms (device only "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
+          f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
+          f"ms ({entry['bound_by']})", flush=True)
+    return entry
+
+
+def tools_phase(gt, dev):
+    """Phase 14: gridpp_tpu_torch.tools on the card, in order: the all-API
+    smoke (both routes), the parity sweep over SWEEP_SEEDS, the
+    per-operator table on both routes (K1 at 10000^2, K2 and K4 at 2000^2
+    its `kernels` entries, with the table's launches) and the scaling
+    harness on CPU ranks. Returns the `kernels` line's entries."""
+    from gridpp_tpu_torch.ops import neighbourhood as nops
+    from gridpp_tpu_torch.ops import stencil
+    from gridpp_tpu_torch.tools import (benchmark_ops, scaling, smoke,
+                                        sweep_parity)
+
+    wrappers = {"K1": stencil.neighbourhood_mean_cuda,
+                "K2": stencil.neighbourhood_minmax_cuda,
+                "K3": stencil.neighbourhood_var_cuda,
+                "K4": stencil.neighbourhood_quantile_fast_cuda,
+                "K5": stencil.neighbourhood_members_cuda}
+
+    def indent(line="", **_):
+        print(f"  {line}", flush=True)
+
+    # -- the smoke: (a) the top level, (b) the device routes, entry points
+    t0 = time.perf_counter()
+    res = smoke.run(dev)
+    passed = smoke.report(res, log=indent)
+    c = res["counts"]
+    check(passed and not res["uncovered"],
+          f"SMOKE PASS in {time.perf_counter() - t0:.3f} s: {res['calls']} "
+          f"calls; {c['host']} top-level calls left the card untouched, "
+          f"{c['device']} device-route calls of "
+          f"{len(res['device_routes'])} functions each allocated on it; "
+          f"the entry points launched {res['launches']}")
+
+    # -- the parity sweep: every pipeline against its API, on the card
+    t0 = time.perf_counter()
+    worst = sweep_parity.worst(sweep_parity.sweep(SWEEP_SEEDS, dev,
+                                                  log=indent))
+    check(worst < sweep_parity.TOL,
+          f"parity sweep, seeds {SWEEP_SEEDS[0]}-{SWEEP_SEEDS[-1]} x "
+          f"{len(sweep_parity.PIPELINES)} pipelines x 2 routes: worst "
+          f"{worst:.3g} < {sweep_parity.TOL} "
+          f"({time.perf_counter() - t0:.3f} s)")
+
+    # -- the per-operator table, counts from 0
+    torch.cuda.empty_cache()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    rows = benchmark_ops.run(TABLE_S, TABLE_N, device=str(dev), log=indent)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    card_rows = [r for r in rows if r["card_s"] is not None]
+    check(all(r["within_bar"] for r in card_rows),
+          f"the table: {len(rows)} rows on the host route, {len(card_rows)} "
+          f"on the card route, each within its bar of the host "
+          f"({time.perf_counter() - t0:.3f} s; launches {launches})")
+    for k in ("K1", "K2", "K4"):
+        check(launches[k] >= 1, f"{k} launched on the table's card route "
+                                f"({launches[k]} launches)")
+    s = int(10000 * TABLE_S)
+    zeros = torch.zeros((s, s), device=dev)
+    mean, mx = int(gt.Mean), int(gt.Max)
+    # the row's field is zeros; K1 held at that shape on a 280 K field too
+    x = torch.as_tensor(field(np.random.default_rng(14), (s, s), 0.1, 280.0,
+                              5.0), device=dev)
+    ok, err = compare(stencil.neighbourhood_mean_cuda(x, 7, 7, mean),
+                      stencil.neighbourhood_mean_plain(x, 7, 7, mean),
+                      (K1_RTOL, K1_ATOL))
+    check(ok, f"K1 at {s}x{s} h=7 on normal(280, 5) with 10% NaN vs plain: "
+              f"max|d|={err:.3g}")
+    del x
+    entries = [path_entry(
+        stencil, "the table's neighbourhood 10000² mean", "K1", zeros, 7,
+        mean, launches["K1"], library=lambda: F.avg_pool2d(
+            zeros[None, None], 15, 1, 7, count_include_pad=False)[0, 0])]
+    del zeros
+    uni = torch.as_tensor(np.random.default_rng(2).random(
+        (2000, 2000)).astype(np.float32), device=dev)
+    entries.append(path_entry(
+        stencil, "the table's neighbourhood 2000² max", "K2", uni, 7, mx,
+        launches["K2"],
+        library=lambda: F.max_pool2d(uni[None, None], 15, 1, 7)[0, 0]))
+    entries.append(qf_entry(stencil, nops,
+                            "the table's neighbourhood_quantile_fast 2000²",
+                            uni, 0.5, 7, torch.linspace(0, 1, 11, device=dev),
+                            launches["K4"]))
+
+    # -- the scaling harness: CPU ranks, no card
+    report = scaling.measure(SCALE_HOSTS, iters=1, warm=False, log=indent)
+    check(report["bit_parity"],
+          f"scaling, {report['hosts']} gloo CPU ranks on cores "
+          f"{report['cores']} of {report['ncpu']}, {report['grid']}, "
+          f"{report['obs']} obs: the gathered analysis == one rank's bit "
+          f"for bit; efficiency {report['efficiency']:.3f} "
+          f"({report['wall_s']:.3f} s)")
+    return entries
+
+
 def main():
     t_start = time.perf_counter()
     laps = [t_start]
@@ -2808,6 +2964,15 @@ def main():
     t0 = time.perf_counter()
     cli_k = cli_phase(gt, dev, lats, lons, plats, plons)
     print(f"  CLI phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # -- 14. the port's tools --
+    lap(laps)
+    print("[gridpp_tpu_torch.tools: the all-API smoke, the parity sweep, "
+          "the per-operator table, the scaling harness]", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tools_k = tools_phase(gt, dev)
+    print(f"  tools phase {time.perf_counter() - t0:.3f} s", flush=True)
     lap(laps)
     print(f"  the script {time.perf_counter() - t_start:.3f} s; each phase "
           f"(the build first): "
@@ -2843,8 +3008,9 @@ def main():
     # K1 on neighbourhood_score's path (phase 11), at each halfwidth
     kernels.extend(score_k1)
     # K1 on the distributed step's padded tile, K2 and K3 on the sharded
-    # stencil's tiles (phase 12); K1, K2 and K3 in the CLI (phase 13)
-    kernels.extend(parallel_k + cli_k)
+    # stencil's tiles (phase 12); K1, K2 and K3 in the CLI (phase 13); K1,
+    # K2 and K4 in the per-operator table (phase 14)
+    kernels.extend(parallel_k + cli_k + tools_k)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

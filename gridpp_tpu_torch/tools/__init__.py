@@ -1,0 +1,12 @@
+"""Tools of gridpp_tpu_torch, each run as `python -m
+gridpp_tpu_torch.tools.<name>`:
+
+- `smoke`: every public name once, on the top-level (host) route and on
+  the module functions' card route, plus the device entry points;
+- `sweep_parity`: every pipeline against its API function over seeds;
+- `benchmark_ops`: the per-operator table at gridpp's benchmark sizes, on
+  the host route and the card route;
+- `scaling`: the parallel layer's strong and weak scaling on CPU ranks.
+
+The package itself does not import this sub-package.
+"""

@@ -13,6 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, gridpp_tpu_torch\n"
+            "assert 'gridpp_tpu_torch.tools' not in sys.modules\n"
             "import gridpp_tpu_torch.ops.oi_ensi\n"
             "import gridpp_tpu_torch.ops.oi_ensi_multi\n"
             "import gridpp_tpu_torch.api.oi\n"
@@ -31,9 +32,14 @@ def test_import_pulls_in_no_jax():
             "import gridpp_tpu_torch.parallel.distributed\n"
             "import gridpp_tpu_torch.parallel.dryrun\n"
             "import gridpp_tpu_torch.client.schemes\n"
+            "import gridpp_tpu_torch.tools.smoke\n"
+            "import gridpp_tpu_torch.tools.sweep_parity\n"
+            "import gridpp_tpu_torch.tools.benchmark_ops\n"
+            "import gridpp_tpu_torch.tools.scaling\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib',\n"
-            "                                            'gridpp_tpu.')))\n"
+            "             if m in ('jax', 'gridpp_tpu', 'benchmark')\n"
+            "             or m.startswith(('jax.', 'jaxlib', 'gridpp_tpu.',\n"
+            "                              'tests', '_torch_')))\n"
             "assert not bad, bad\n"
             "import torch\n"
             "assert not torch.cuda.is_initialized()\n")
