@@ -1,7 +1,7 @@
 """Smoke run of gridpp_tpu_torch's serving, neighbourhood-statistics, OI
 API, downscaling/calibration paths, the rest of gridpp's numpy API, the
-parallel layer, the command-line client and the port's tools on one CUDA
-card.
+parallel layer, the command-line client, the port's tools and its roofline
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -46,8 +46,10 @@ Run from the root of a checkout. In order it:
    2000 x 2000 x 10 normal(280, 5) ensemble (F.avg_pool2d on its
    channels-last (1, E, Y, X) view), beside 10 launches of K1 on its
    contiguous member planes and beside K5 on the 10%-NaN field; prints
-   each kernel's bound (one read and one write at 3.35 TB/s, or its
-   operations at the H100's f32/int32 rate, whichever is longer); then
+   each kernel's time cold (gridpp_tpu_torch.tools.roofline.cold_ms:
+   launches rotated over copies of the input past 256 MB) and its bound
+   (gridpp_tpu_torch.tools.roofline.count's bytes and operations over the
+   card's published peaks, whichever takes longer); then
    each kernel at h=100 and h=300 by the route its plan picks (the wide
    route; K4's only one), beside its bound, its plain version and, at
    h=100, F.avg_pool2d / F.max_pool2d for K1/K2, with the device time of
@@ -206,6 +208,17 @@ Run from the root of a checkout. In order it:
    gloo CPU ranks at 512 x 512 with 2,000 obs, its first step timed (the
    reference times three after a warm one), the gathered analysis equal
    to one rank's bit for bit.
+15. the roofline (gridpp_tpu_torch.tools.roofline at scale 1, as `python
+   -m gridpp_tpu_torch.tools.roofline` runs it): tools/roofline.py's eight
+   rows (K1 Mean and K2 Max at 2048 x 2048 h=7, K4 at T=11, the plain
+   versions of K1 and K4, the EnSI update at B=16384, E=10, S=10, the
+   dense OI block at B=16384, P=4096, S=10, the tiled re-solve at 512 x
+   512 with 4096 obs), then K1-K5 at the main path's sizes (2000 x 2000,
+   h=7, T=11, 10 members) and their wide route at h=100; each row held to
+   its plain version, timed warm and cold, beside its bound and its
+   library call (K1, K2, K5); prints the table; checks every row's times
+   and bound, its shares at most 105%, and that the rows launched every
+   kernel source.
 
 Any failed check raises. The line before the last is a JSON record of the
 kernels (K1-K5; K1's launches those of phase 5's h=7 cycles and phase
@@ -213,8 +226,9 @@ kernels (K1-K5; K1's launches those of phase 5's h=7 cycles and phase
 K4's phase 6's two calls; the wide route of K1, whose launches are phase
 5's h=100 cycles; K1 on phase 11's neighbourhood_score path, one entry a
 halfwidth; K1 on phase 12's padded tile, K2 and K3 on its sharded tiles,
-K1, K2 and K3 in phase 13's CLI; K1, K2 and K4 in phase 14's table); the
-last line is {"ok": true, "device": {...}}. Each phase's seconds are
+K1, K2 and K3 in phase 13's CLI; K1, K2 and K4 in phase 14's table), each
+with its time hot (`ms`) and cold (`cold_ms`) and the bound of its count;
+the last line is {"ok": true, "device": {...}}. Each phase's seconds are
 printed as the next begins.
 """
 from __future__ import annotations
@@ -240,14 +254,6 @@ ENS_CARD_CPU_TOL = {"ensi": 2e-3, "utem": 2e-3, "ebe": 1e-3, "ebesc": 1e-3}
 N_ENS = 10
 CYCLES = 5
 PALLAS = "gridpp_tpu/ops/pallas_stencil.py"
-# H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM, f32 outside the tensor
-# cores, and int32, which the SM issues at half the f32 rate
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
-I32_OPS_S = F32_OPS_S / 2
-# output rows that the wide route's column fold shares its window's core
-# between (kRun, csrc/neighbourhood_wide.cu)
-WIDE_RUN = 16
 
 
 def check(cond, what):
@@ -317,13 +323,27 @@ def device_ms(fn, reps=20, by_kernel=False, at_least=None):
     return None
 
 
-def bound_ms(nbytes, ops, ops_rate):
-    """The least time of the work on one H100 SXM: the larger of its bytes
-    over 3.35 TB/s (each input read once, each output written once) and
-    its operations over ops_rate; returns (ms, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_rate
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(kind, shape, h, t=0, stat=0):
+    """The least time on this card of kernel `kind` ("K1"-"K5") on a field
+    of `shape` at halfwidth h (K4: t thresholds; K5: statistic stat): the
+    bytes and operations of gridpp_tpu_torch.tools.roofline.count over the
+    card's published peaks (roofline.peaks); returns (ms, "bytes" or
+    "operations")."""
+    from gridpp_tpu_torch.tools import roofline
+    found = roofline.peaks()
+    if found is None:
+        raise AssertionError("no published peaks for "
+                             f"{torch.cuda.get_device_name()}")
+    row = roofline.Row(kind, kind, tuple(int(d) for d in shape), h, t, stat)
+    return roofline.bound(roofline.count(row), found[1])
+
+
+def cold_ms(fn, *args):
+    """Mean ms of fn(*args) with its inputs outside the L2 cache
+    (gridpp_tpu_torch.tools.roofline.cold_ms: calls rotated over copies
+    of args)."""
+    from gridpp_tpu_torch.tools import roofline
+    return roofline.cold_ms(fn, args)
 
 
 def bench_problem(n=2000, p=10000):
@@ -859,7 +879,6 @@ def lr_k1_entry(gt, stencil, moments, launches, err):
         ok, e = compare(got, want, (K1_RTOL, K1_ATOL))
         check(ok, f"LR's {label}: the library call computes the same "
                   f"function (max|d|={e:.3g})")
-    cells = xs[0][0].numel()
     entry = {
         "name": "neighbourhood_mean_cuda (calc_gradient LinearRegression: "
                 "4 Mean + 1 Sum)",
@@ -867,15 +886,19 @@ def lr_k1_entry(gt, stencil, moments, launches, err):
         "source": "gridpp_tpu_torch/csrc/neighbourhood_mean.cu",
         "replaces": f"{PALLAS}:301",
         "launches": launches, "max_abs_err": err,
-        "ms": event_ms(card), "device_ms": device_ms(card),
+        "ms": event_ms(card),
+        "cold_ms": cold_ms(lambda *a: [
+            stencil.neighbourhood_mean_cuda(x, LR_H, LR_H, st)
+            for x, (_, st) in zip(a, xs)], *(x for x, _ in xs)),
+        "device_ms": device_ms(card),
         "plain_ms": event_ms(plain, reps=10), "library_ms": event_ms(library)}
-    # bytes: one f32 read and one f32 write of each of the five fields;
-    # operations: the separable window's adds
+    # the five fields' work as one (5, Y, X) K1 call
     entry["bound_ms"], entry["bound_by"] = bound_ms(
-        5 * 8 * cells, 5 * 4 * k * cells, F32_OPS_S)
+        "K1", (len(xs),) + tuple(xs[0][0].shape), LR_H)
     dev_ms = entry["device_ms"]
     print(f"  K1 on the LR path (five launches, {tuple(xs[0][0].shape)}, "
-          f"h={LR_H}): kernel {entry['ms']:.4f} ms (device only "
+          f"h={LR_H}): kernel {entry['ms']:.4f} ms, cold "
+          f"{entry['cold_ms']:.4f} ms (device only "
           f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
           f"plain {entry['plain_ms']:.4f} ms, library "
           f"call {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
@@ -1275,30 +1298,25 @@ def score_k1_entry(gt, stencil, planes, h, launches):
     ok, e = compare(card(), library(), SCORE_BAR)
     check(ok, f"neighbourhood_score's K1 h={h}: the library call computes "
               f"the same function (max|d|={e:.3g})")
-    cells = planes.numel()
     entry = {
         "name": f"neighbourhood_mean_cuda (neighbourhood_score: 4 "
                 f"indicator planes, Mean h={h})",
         "route": "cuda",
         "source": "gridpp_tpu_torch/csrc/neighbourhood_mean.cu",
         "replaces": f"{PALLAS}:301",
-        "launches": launches, "max_abs_err": err, "ms": event_ms(card)}
+        "launches": launches, "max_abs_err": err, "ms": event_ms(card),
+        "cold_ms": cold_ms(lambda a: stencil.neighbourhood_mean_cuda(
+            a, h, h, mean), planes)}
     # one launch a call, back to back: a trace far below the event time
     # is a partial one, taken again (and not measured if it stays so)
     entry.update(device_ms=device_ms(card, at_least=0.5 * entry["ms"]),
                  plain_ms=event_ms(plain, reps=5),
                  library_ms=event_ms(library))
-    # bytes: one f32 read and one f32 write of the four planes;
-    # operations: the separable window's adds of the sums and counts, at
-    # the fewest terms a cell and pass that computes the function: the
-    # direct window's 2h+1, or the shared-core fold's (phase 5's wide
-    # bound)
-    n_w = min(k, (2 * WIDE_RUN + 2 * h) / WIDE_RUN)
-    entry["bound_ms"], entry["bound_by"] = bound_ms(
-        8 * cells, 4 * n_w * cells, F32_OPS_S)
+    entry["bound_ms"], entry["bound_by"] = bound_ms("K1", planes.shape, h)
     dev_ms = entry["device_ms"]
     print(f"  K1 on neighbourhood_score's planes {tuple(planes.shape)}, h={h}"
-          f": kernel {entry['ms']:.4f} ms (device only "
+          f": kernel {entry['ms']:.4f} ms, cold {entry['cold_ms']:.4f} ms "
+          "(device only "
           f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
           f"plain {entry['plain_ms']:.4f} ms, library call "
           f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms "
@@ -1683,23 +1701,18 @@ def path_entry(stencil, label, k, x, h, stat, launches, library=None):
         ok, e = compare(card(), library(), (K1_RTOL, K1_ATOL))
         check(ok, f"{k} on {label}: the library call computes the same "
                   f"function (max|d|={e:.3g})")
-    cells = x.numel()
-    # bytes: one f32 read and one f32 write; operations: the separable
-    # window's adds (K1: sums and counts) or compares (K2), K3's three
-    # sums, 2h+1 terms a cell and pass
-    ops = {"K1": 4, "K2": 2, "K3": 6}[k] * (2 * h + 1) * cells
     entry = {"name": f"{wrapper.__name__} ({label})", "route": "cuda",
              "source": f"gridpp_tpu_torch/csrc/{src}.cu",
              "replaces": f"{PALLAS}:{line}", "launches": launches,
-             "max_abs_err": err, "ms": event_ms(card)}
+             "max_abs_err": err, "ms": event_ms(card),
+             "cold_ms": cold_ms(lambda a: wrapper(a, h, h, stat), x)}
     entry.update(device_ms=device_ms(card, at_least=0.5 * entry["ms"]),
                  plain_ms=event_ms(plain, reps=5),
                  library_ms=None if library is None else event_ms(library))
-    entry["bound_ms"], entry["bound_by"] = bound_ms(8 * cells, ops,
-                                                    F32_OPS_S)
+    entry["bound_ms"], entry["bound_by"] = bound_ms(k, x.shape, h)
     dev_ms, lib = entry["device_ms"], entry["library_ms"]
     print(f"  {k} on {label} {tuple(x.shape)}, h={h}: kernel "
-          f"{entry['ms']:.4f} ms (device only "
+          f"{entry['ms']:.4f} ms, cold {entry['cold_ms']:.4f} ms (device only "
           f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
           f"plain {entry['plain_ms']:.4f} ms, library call "
           f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
@@ -2184,21 +2197,21 @@ def qf_entry(stencil, nops, label, x, q, h, thr, launches):
     ok, err = compare(card(), plain(), None)
     check(ok, f"K4 on {label} {tuple(x.shape)} h={h} vs plain: bit for bit "
               f"(max|d|={err:.3g})")
-    cells, t = x.numel(), thr.numel()
-    lanes = 32 // stencil.qf_lane_bits((2 * h + 1) ** 2)
     entry = {"name": f"neighbourhood_quantile_fast_cuda ({label})",
              "route": "cuda",
              "source": "gridpp_tpu_torch/csrc/neighbourhood_wide.cu",
              "replaces": f"{PALLAS}:465", "launches": launches,
-             "max_abs_err": err, "ms": event_ms(card)}
+             "max_abs_err": err, "ms": event_ms(card),
+             "cold_ms": cold_ms(lambda a, th: stencil
+                                .neighbourhood_quantile_fast_cuda(
+                                    a, q, h, h, th), x, thr)}
     entry.update(device_ms=device_ms(card, at_least=0.5 * entry["ms"]),
                  plain_ms=event_ms(plain, reps=5), library_ms=None)
-    entry["bound_ms"], entry["bound_by"] = bound_ms(
-        8 * cells + 4 * t,
-        cells * (2 * (t + 1) + 4 * -(-(t + 1) // lanes) + 3 * t), I32_OPS_S)
+    entry["bound_ms"], entry["bound_by"] = bound_ms("K4", x.shape, h,
+                                                    thr.numel())
     dev_ms = entry["device_ms"]
     print(f"  K4 on {label} {tuple(x.shape)}, h={h}: kernel "
-          f"{entry['ms']:.4f} ms (device only "
+          f"{entry['ms']:.4f} ms, cold {entry['cold_ms']:.4f} ms (device only "
           f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}), "
           f"plain {entry['plain_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
           f"ms ({entry['bound_by']})", flush=True)
@@ -2299,6 +2312,53 @@ def tools_phase(gt, dev):
           f"for bit; efficiency {report['efficiency']:.3f} "
           f"({report['wall_s']:.3f} s)")
     return entries
+
+
+# -- phase 15: the roofline ---------------------------------------------------
+ROOFLINE_SCALE = 1.0
+# a share of a peak past this is a count below the work done
+MAX_SHARE = 105.0
+
+
+def roofline_phase(dev):
+    """Phase 15: gridpp_tpu_torch.tools.roofline at scale ROOFLINE_SCALE on
+    the card, as `python -m gridpp_tpu_torch.tools.roofline` runs it: its
+    rows (each held to its plain version first), their table, and checks
+    that every row has its warm, cold and bound times, that its kernel
+    launched, that no share passes MAX_SHARE, that the library call was
+    timed where one exists, and that the rows launched every kernel of
+    ops.stencil.KERNELS."""
+    from gridpp_tpu_torch.ops import stencil
+    from gridpp_tpu_torch.tools import roofline
+
+    def indent(line="", **_):
+        print(f"  {line}", flush=True)
+
+    t0 = time.perf_counter()
+    rows = roofline.run(ROOFLINE_SCALE, dev, log=indent)
+    roofline.table(rows, log=indent)
+    want = [r.label for r in roofline.rows(ROOFLINE_SCALE)]
+    check([r["kernel"] for r in rows] == want,
+          f"the roofline's {len(want)} rows, in order "
+          f"({time.perf_counter() - t0:.3f} s)")
+    fmt = roofline._fmt
+    for r in rows:
+        numbers = [r[k] for k in ("warm_ms", "cold_ms", "bound_ms",
+                                  "pct_peak", "pct_measured_bw")]
+        check(all(isinstance(v, float) and v > 0 for v in numbers)
+              and max(numbers[3:]) <= MAX_SHARE,
+              f"{r['kernel']}: warm {fmt(r['warm_ms'])} ms, cold "
+              f"{fmt(r['cold_ms'])} ms, bound {fmt(r['bound_ms'])} ms "
+              f"({r['bound_by']}), {fmt(r['pct_peak'], '.1f')}% of it, "
+              f"{fmt(r['pct_measured_bw'], '.1f')}% of the measured "
+              "bandwidth")
+        if r["kind"] in ("K1", "K2", "K5") and r["sources"]:
+            check(isinstance(r["library_ms"], float),
+                  f"{r['kernel']}: library call {fmt(r['library_ms'])} ms")
+    covered = set().union(*(set(r["sources"]) for r in rows))
+    check(covered == set(stencil.KERNELS),
+          f"the rows launched every kernel source: {sorted(covered)}")
+    return rows
 
 
 def main():
@@ -2600,27 +2660,30 @@ def main():
         check(ok, f"{k}: the library call computes the same function "
                   f"(max|d|={e:.3g})")
     del lib_out
-    cells = 2000 * 2000
     t = thr11.numel()
-    lanes = 32 // stencil.qf_lane_bits(15 * 15)
-    # bytes: one f32 read and one f32 write of the field; operations: the
-    # separable window's adds or compares, K4's indicator compares, packed
-    # running adds and per-threshold divisions
-    work = {"K1": (8 * cells, 4 * 15 * cells, F32_OPS_S),
-            "K2": (8 * cells, 2 * 15 * cells, F32_OPS_S),
-            "K3": (8 * cells, 6 * 15 * cells, F32_OPS_S),
-            "K4": (8 * cells + 4 * t,
-                   cells * (2 * (t + 1) + 4 * -(-(t + 1) // lanes) + 3 * t),
-                   I32_OPS_S),
-            "K5": (8 * cells * N_ENS, 4 * 15 * cells * N_ENS, F32_OPS_S)}
+    # each kernel as a function of its inputs (the cold loop rotates
+    # copies of them), with its statistic
+    cold_fns = {
+        "K1": (lambda a: stencil.neighbourhood_mean_cuda(a, 7, 7, mean),
+               (bg0,), mean),
+        "K2": (lambda a: stencil.neighbourhood_minmax_cuda(a, 7, 7, mx),
+               (bg0,), mx),
+        "K3": (lambda a: stencil.neighbourhood_var_cuda(a, 7, 7, std),
+               (anom,), std),
+        "K4": (lambda a, th: stencil.neighbourhood_quantile_fast_cuda(
+                   a, 0.5, 7, 7, th), (uni, thr11), 0),
+        "K5": (lambda a: stencil.neighbourhood_members_cuda(a, 7, 7, mean),
+               (ens,), mean)}
     timing = {}
     for k, (kern, plain) in ms.items():
-        kt = event_ms(kern)
+        fn, args, stat = cold_fns[k]
         timing[k] = {
-            "ms": kt, "plain_ms": event_ms(plain, reps=10),
+            "ms": event_ms(kern), "cold_ms": cold_ms(fn, *args),
+            "plain_ms": event_ms(plain, reps=10),
             "device_ms": device_ms(kern),
             "library_ms": event_ms(library[k]) if k in library else None}
-        timing[k]["bound_ms"], timing[k]["bound_by"] = bound_ms(*work[k])
+        timing[k]["bound_ms"], timing[k]["bound_by"] = bound_ms(
+            k, args[0].shape, 7, t if k == "K4" else 0, stat)
     ens_planes = ens.permute(2, 0, 1).contiguous()
     k1_members_ms = event_ms(lambda: [stencil.neighbourhood_mean_cuda(
         ens_planes[k], 7, 7, mean) for k in range(N_ENS)])
@@ -2632,30 +2695,18 @@ def main():
         return "not measured" if v is None else f"{v:.4f} ms"
 
     for k, r in timing.items():
-        print(f"  {k} ({wrappers[k].__name__}): kernel {r['ms']:.4f} ms "
-              f"(device only {fmt(r['device_ms'])}), plain "
+        print(f"  {k} ({wrappers[k].__name__}): kernel {r['ms']:.4f} ms, "
+              f"cold {r['cold_ms']:.4f} ms (device only "
+              f"{fmt(r['device_ms'])}), plain "
               f"{r['plain_ms']:.4f} ms, library call "
               f"{'none' if r['library_ms'] is None else fmt(r['library_ms'])}"
               f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{r['bound_ms'] / r['ms']:.3f} of the bound", flush=True)
     # the same functions at wide halfwidths, by the route the plan picks
-    # (K4's only one).
-    # Bound: the same bytes (the route's scratch round trip is its own
-    # choice and not counted); operations: a direct fold that shares each
-    # window's core between WIDE_RUN outputs takes (2 WIDE_RUN + 2h) /
-    # WIDE_RUN terms a cell and pass, and K4's exact integer counts allow
-    # running sums, so it takes h=7's count with lanes as wide as h needs
+    # (K4's only one); the bound counts the function's work, not the
+    # route's scratch round trip
     wide_ms = {}
     for h in (100, 300):
-        n_w = (2 * WIDE_RUN + 2 * h) / WIDE_RUN
-        words = stencil.qf_words(t, stencil.qf_lane_bits((2 * h + 1) ** 2))
-        wide_work = {
-            "K1": (8 * cells, 4 * n_w * cells, F32_OPS_S),
-            "K2": (8 * cells, 2 * n_w * cells, F32_OPS_S),
-            "K3": (8 * cells, 6 * n_w * cells, F32_OPS_S),
-            "K4": (8 * cells + 4 * t,
-                   cells * (2 * (t + 1) + 4 * words + 3 * t), I32_OPS_S),
-            "K5": (8 * cells * N_ENS, 4 * n_w * cells * N_ENS, F32_OPS_S)}
         wide_fns = {
             "K1": (lambda: stencil.neighbourhood_mean_cuda(bg0, h, h, mean),
                    lambda: stencil.neighbourhood_mean_plain(bg0, h, h, mean)),
@@ -2671,15 +2722,19 @@ def main():
                    lambda: stencil.neighbourhood_members_plain(ens, h, h,
                                                                mean))}
         for k, (kern, plain) in wide_fns.items():
-            shape = ens.shape if k == "K5" else bg0.shape
-            route = stencil.stencil_plan(k, shape, h, h, mean if k in (
-                "K1", "K5") else mx if k == "K2" else std, t=t).route
-            b_ms, b_by = bound_ms(*wide_work[k])
-            wide_ms[(k, h)] = {"ms": event_ms(kern, reps=5),
-                               "device_ms": device_ms(kern, reps=5),
-                               "plain_ms": event_ms(plain, reps=2),
-                               "bound_ms": b_ms, "bound_by": b_by,
-                               "route": route}
+            _, args, stat = cold_fns[k]
+            shape = args[0].shape
+            route = stencil.stencil_plan(k, shape, h, h, stat, t=t).route
+            b_ms, b_by = bound_ms(k, shape, h, t if k == "K4" else 0, stat)
+            wide_ms[(k, h)] = {
+                "ms": event_ms(kern, reps=5),
+                "cold_ms": cold_ms(
+                    (lambda a, th: stencil.neighbourhood_quantile_fast_cuda(
+                        a, 0.5, h, h, th)) if k == "K4" else
+                    (lambda a: wrappers[k](a, h, h, stat)), *args),
+                "device_ms": device_ms(kern, reps=5),
+                "plain_ms": event_ms(plain, reps=2),
+                "bound_ms": b_ms, "bound_by": b_by, "route": route}
             r = wide_ms[(k, h)]
             # the library's pooling at h=100 (a direct (2h+1)^2 window a
             # cell; too slow to time at h=300)
@@ -2696,8 +2751,9 @@ def main():
                 check(ok, f"{k} h={h}: the library call computes the same "
                           f"function (max|d|={e:.3g})")
                 r["library_ms"] = event_ms(lib, reps=2)
-            print(f"  {k} h={h} ({route} route): kernel {r['ms']:.4f} ms "
-                  f"(device only {fmt(r['device_ms'])}), "
+            print(f"  {k} h={h} ({route} route): kernel {r['ms']:.4f} ms, "
+                  f"cold {r['cold_ms']:.4f} ms (device only "
+                  f"{fmt(r['device_ms'])}), "
                   f"plain {r['plain_ms']:.4f} ms, library call "
                   f"{'none' if r['library_ms'] is None else fmt(r['library_ms'])}"
                   f", bound {b_ms:.4f} ms ({b_by}), "
@@ -2716,11 +2772,13 @@ def main():
     planes = ens.permute(2, 0, 1).contiguous() - 280.0
     k3_planes = (lambda: stencil.neighbourhood_var_cuda(planes, 7, 7, std),
                  lambda: stencil.neighbourhood_var_plain(planes, 7, 7, std))
-    b_ms, b_by = bound_ms(8 * cells * N_ENS, 6 * 15 * cells * N_ENS,
-                          F32_OPS_S)
+    b_ms, b_by = bound_ms("K3", planes.shape, 7)
     kt = event_ms(k3_planes[0])
+    kc = cold_ms(lambda a: stencil.neighbourhood_var_cuda(a, 7, 7, std),
+                 planes)
     print(f"  K3 Std on {N_ENS} planes of 2000x2000 in one launch: kernel "
-          f"{kt:.4f} ms (device only {fmt(device_ms(k3_planes[0]))}), plain "
+          f"{kt:.4f} ms, cold {kc:.4f} ms (device only "
+          f"{fmt(device_ms(k3_planes[0]))}), plain "
           f"{event_ms(k3_planes[1], reps=5):.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}), {b_ms / kt:.3f} of the bound", flush=True)
     del planes, k3_planes
@@ -2973,6 +3031,13 @@ def main():
     t0 = time.perf_counter()
     tools_k = tools_phase(gt, dev)
     print(f"  tools phase {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # -- 15. the roofline --
+    lap(laps)
+    print("[gridpp_tpu_torch.tools.roofline: every kernel and OI block, "
+          "warm and cold, against its bound]", flush=True)
+    torch.cuda.empty_cache()
+    roofline_phase(dev)
     lap(laps)
     print(f"  the script {time.perf_counter() - t_start:.3f} s; each phase "
           f"(the build first): "
@@ -3001,8 +3066,8 @@ def main():
         "launches": wide_launches,
         "max_abs_err": wide_err,
         **{key: wide_ms[("K1", 100)][key]
-           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                       "library_ms")}})
+           for key in ("ms", "cold_ms", "device_ms", "plain_ms", "bound_ms",
+                       "bound_by", "library_ms")}})
     # K1 on the downscale phase's path, with that path's own launches
     kernels.append(lr_k1)
     # K1 on neighbourhood_score's path (phase 11), at each halfwidth
