@@ -1,7 +1,7 @@
 """Smoke run of gridpp_tpu_torch's serving, neighbourhood-statistics, OI
 API, downscaling/calibration paths, the rest of gridpp's numpy API, the
-parallel layer, the command-line client, the port's tools and its roofline
-on one CUDA card.
+parallel layer, the command-line client, the port's tools, its roofline
+and its bench on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -219,6 +219,22 @@ Run from the root of a checkout. In order it:
    library call (K1, K2, K5); prints the table; checks every row's times
    and bound, its shares at most 105%, and that the rows launched every
    kernel source.
+16. the port's bench: the host-card copy rates of bench.py's 16 MB field
+   and 160 MB ensemble (pageable and pinned, with the host's finiteness
+   check and pinned copies; link_rates), then `python -m
+   gridpp_tpu_torch.tools.bench --repeats 3` at full size in a subprocess
+   (--repeats 1 when less than BENCH_PHASE_S of the script's 1200 s is
+   left): exit 0 within 300 s, its line's keys bench.py's and the four
+   additions, every number finite and positive, backend cuda, its checks
+   (general == general_resolve bit for bit, serve_stream == the serial
+   loop) passed and one K1 launch a deterministic cycle; its line printed
+   on a line of its own. Then Pipeline.serve_stream over 4 cycles under
+   torch.profiler: equal to a loop of __call__ bit for bit, with a
+   device-to-host copy overlapping a kernel; warm, the tool's serial loop
+   and serve_stream on those cycles in turn, three times each, and the
+   host's finiteness check of a cycle's field; K1 on the field against its
+   plain version and avg_pool2d, with the tool's and the trace's
+   launches.
 
 Any failed check raises. The line before the last is a JSON record of the
 kernels (K1-K5; K1's launches those of phase 5's h=7 cycles and phase
@@ -226,7 +242,8 @@ kernels (K1-K5; K1's launches those of phase 5's h=7 cycles and phase
 K4's phase 6's two calls; the wide route of K1, whose launches are phase
 5's h=100 cycles; K1 on phase 11's neighbourhood_score path, one entry a
 halfwidth; K1 on phase 12's padded tile, K2 and K3 on its sharded tiles,
-K1, K2 and K3 in phase 13's CLI; K1, K2 and K4 in phase 14's table), each
+K1, K2 and K3 in phase 13's CLI; K1, K2 and K4 in phase 14's table; K1
+on phase 16's bench tool and serve_stream cycles), each
 with its time hot (`ms`) and cold (`cold_ms`) and the bound of its count;
 the last line is {"ok": true, "device": {...}}. Each phase's seconds are
 printed as the next begins.
@@ -234,6 +251,7 @@ printed as the next begins.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -347,15 +365,10 @@ def cold_ms(fn, *args):
 
 
 def bench_problem(n=2000, p=10000):
-    """The configuration of bench.py:57-69, seed 0."""
-    rng = np.random.default_rng(0)
-    lats, lons = np.meshgrid(np.linspace(55, 62, n), np.linspace(5, 12, n),
-                             indexing="ij")
-    plats = rng.uniform(55, 62, p)
-    plons = rng.uniform(5, 12, p)
-    background = rng.normal(280, 5, (n, n)).astype(np.float32)
-    noise = rng.normal(0, 1, p).astype(np.float32)
-    return lats, lons, plats, plons, background, noise
+    """The configuration of bench.py:57-69, seed 0: its draws as
+    gridpp_tpu_torch.tools.bench.field_draws makes them."""
+    from gridpp_tpu_torch.tools import bench
+    return bench.field_draws(np.random.default_rng(0), n, p)
 
 
 def run_cycles(pipe, bgs, obs, gap, rat):
@@ -2361,6 +2374,233 @@ def roofline_phase(dev):
     return rows
 
 
+# -- phase 16: the benchmark tool ---------------------------------------------
+SCRIPT_LIMIT_S = 1200.0
+BENCH_REPEATS = 3
+BENCH_LIMIT_S = 300.0      # the tool's full-size run on the card
+# phase 16 at --repeats 3 (the tool, the link rates, the traced Pipeline's
+# set-up and cycles, K1's entry); past what is left, --repeats 1
+BENCH_PHASE_S = 240.0
+TRACE_CYCLES = 4
+
+
+def link_rates(dev, reps=5):
+    """Best-of-reps ms of moving bench.py's 16 MB field and 160 MB
+    ensemble between host and card, pageable (torch.as_tensor, .cpu())
+    and pinned (non_blocking copies), and of the host work a serving
+    cycle adds: the finiteness check, the copy into a pinned buffer and
+    the copy out of it (numpy's, and torch's on its intra-op threads, as
+    serve_stream makes them, the check on the pinned copy); printed with
+    GB/s."""
+    rng = np.random.default_rng(16)
+    out = {}
+    for label, shape in (("16 MB", (2000, 2000)),
+                         ("160 MB", (2000, 2000, 10))):
+        host = rng.normal(280, 5, shape).astype(np.float32)
+        pin = torch.empty(shape, pin_memory=True)
+        card = torch.as_tensor(host, device=dev)
+        pin_np = pin.numpy()
+
+        def best(fn):
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t)
+            return min(ts) * 1e3
+
+        row = {
+            "h2d pageable": best(lambda: torch.as_tensor(host, device=dev)),
+            "h2d pinned": best(lambda: pin.to(dev, non_blocking=True)),
+            "d2h pageable": best(lambda: card.cpu().numpy()),
+            "d2h pinned": best(lambda: pin.copy_(card, non_blocking=True)),
+            "host isfinite": best(lambda: bool(np.isfinite(host).all())),
+            "host isfinite of the pinned copy, torch threads": best(
+                lambda: bool(torch.isfinite(pin).all())),
+            "host copy into pinned": best(lambda: np.copyto(pin_np, host)),
+            "host copy out of pinned": best(lambda: pin_np.copy()),
+            "host copy into pinned, torch threads": best(
+                lambda: pin.copy_(torch.from_numpy(host))),
+            "host copy out of pinned, torch threads": best(
+                lambda: torch.empty(shape).copy_(pin).numpy())}
+        out[label] = row
+        print(f"  {label}: " + ", ".join(
+            f"{k} {ms:.3f} ms ({host.nbytes / ms / 1e6:.2f} GB/s)"
+            for k, ms in row.items()), flush=True)
+        del pin, card
+    return out
+
+
+def device_overlaps(prof):
+    """(device-to-host copies, [(copy, kernel, overlap us)]) of a
+    torch.profiler run: each copy with every kernel that ran while it
+    did."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    d2h = [e for e in events if "DtoH" in e.name]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy",
+                                                           "Memset"))]
+    pairs = []
+    for m in d2h:
+        for k in kernels:
+            lo = max(m.time_range.start, k.time_range.start)
+            hi = min(m.time_range.end, k.time_range.end)
+            if hi > lo:
+                pairs.append((m, k, hi - lo))
+    return d2h, pairs
+
+
+def bench_tool(repeats):
+    """`python -m gridpp_tpu_torch.tools.bench --repeats repeats` at full
+    size in a subprocess: its exit code, time, key set, numbers, backend
+    and checks; prints its progress and, on a line of its own, its JSON
+    line. Returns the K1 launches the tool counted."""
+    from gridpp_tpu_torch.tools import bench
+    cmd = [sys.executable, "-m", "gridpp_tpu_torch.tools.bench",
+           "--repeats", str(repeats)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True,
+                         timeout=BENCH_LIMIT_S + 120)
+    secs = time.perf_counter() - t0
+    for line in res.stderr.splitlines():
+        print(f"  | {line}", flush=True)
+    check(res.returncode == 0, f"{' '.join(cmd[1:])}: exit "
+                               f"{res.returncode} in {secs:.3f} s")
+    check(secs <= BENCH_LIMIT_S,
+          f"the tool's full-size run within {BENCH_LIMIT_S:.0f} s "
+          f"({secs:.3f} s)")
+    line = res.stdout.strip().splitlines()[-1]
+    print(f"  bench line: {line}", flush=True)
+    out = json.loads(line)
+    check(list(out) == bench.output_keys(),
+          f"the line's {len(out)} keys: bench.py's and the four additions")
+    numbers = {k: v for k, v in out.items()
+               if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    check(all(np.isfinite(v) and v > 0 for v in numbers.values())
+          and set(out) - set(numbers) == {"metric", "unit", "headline_note",
+                                           "backend", "device_name"},
+          f"all {len(numbers)} numbers finite and positive")
+    check(out["backend"] == "cuda" and out["device_name"]
+          == torch.cuda.get_device_name(), f"backend {out['backend']}, "
+          f"{out['device_name']}, {out['device_power_limit_w']} W")
+    for what in ["ok: general == general_resolve bit for bit",
+                 "ok: fast serving: K1 launched"] + [
+            f"ok: {key}: serve_stream's {c} analyses equal the serial loop's"
+            for key, c in bench.STREAMED.items()]:
+        check(what in res.stderr, f"the tool's check: {what}")
+    tool_k1 = int(res.stderr.split("K1 launches in all: ")[1].split()[0])
+    want = (len(bench.DETERMINISTIC) * (1 + repeats * bench.CYCLES) + 1
+            + 2 * bench.STREAMED["fast"])
+    check(tool_k1 == want,
+          f"the tool: one K1 launch a cycle of fast, general, "
+          f"general_resolve and the fast serving loops ({tool_k1})")
+    for key in bench.PATHS:
+        print(f"  {key}: compute {out[f'{key}_compute_pts_per_s']:.1f} "
+              f"gridpoints/s (spread {out[f'{key}_compute_spread']:.4f}), "
+              f"d2h {out[f'{key}_d2h_s']:.6f} s, serving "
+              f"{out[f'{key}_serving_pts_per_s']:.1f}", flush=True)
+    for key in bench.STREAMED:
+        s, o = (out[f"{key}_serving_{m}_pts_per_s"]
+                for m in ("serial", "overlapped"))
+        print(f"  {key} serving: serial {s:.1f}, serve_stream {o:.1f} "
+              f"gridpoints/s ({o / s:.4f}x)", flush=True)
+    return tool_k1
+
+
+def stream_trace(gt, dev):
+    """Pipeline.serve_stream at bench.py's configuration over TRACE_CYCLES
+    cycles under torch.profiler, after a warm cycle: equal to a loop of
+    __call__ bit for bit, and a device-to-host copy overlapping a kernel.
+    Then, warm, the tool's serial loop and serve_stream on those cycles in
+    turn, three times each, and the host's finiteness check of a cycle.
+    Returns (the K1 launches it counted, the background on the card)."""
+    from gridpp_tpu_torch.ops import stencil
+    k1 = stencil.neighbourhood_mean_cuda
+    before = k1.launches
+    lats, lons, plats, plons, background, noise = bench_problem()
+    p = plats.size
+    grid = gt.Grid(lats, lons)
+    points = gt.Points(plats, plons, np.zeros(p), np.zeros(p))
+    pobs = background.reshape(-1)[grid.nearest_map(plats, plons)] + noise
+    t0 = time.perf_counter()
+    pipe = gt.Pipeline(grid, points, gt.BarnesStructure(10000.0),
+                       halfwidth=7, statistic=gt.Mean, max_points=10,
+                       ratios=np.full(p, 0.1, np.float32), device=dev)
+    print(f"  Pipeline set-up {time.perf_counter() - t0:.3f} s", flush=True)
+    cycles = [(background + np.float32(i), pobs)
+              for i in range(TRACE_CYCLES)]
+    list(pipe.serve_stream(cycles[:1]))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        streamed = list(pipe.serve_stream(cycles))
+        traced = time.perf_counter() - t0
+    looped = [pipe(*c) for c in cycles]
+    check(len(streamed) == TRACE_CYCLES
+          and all(np.array_equal(a, b) for a, b in zip(streamed, looped)),
+          f"serve_stream's {TRACE_CYCLES} analyses == a loop of __call__ "
+          f"bit for bit ({traced * 1e3:.3f} ms under the profiler)")
+    # warm: the tool's loops back to back, three times, and the host's
+    # finiteness check of each cycle's field
+    def serial():
+        return [pipe.run_device(*(torch.as_tensor(a, device=dev) for a in c),
+                                assume_valid=True).cpu().numpy()
+                for c in cycles]
+
+    for k in range(3):
+        (_, t_serial), (_, t_stream) = (
+            timed(serial), timed(lambda: list(pipe.serve_stream(cycles))))
+        print(f"  warm, try {k}: serial {t_serial / TRACE_CYCLES * 1e3:.3f}"
+              f", serve_stream {t_stream / TRACE_CYCLES * 1e3:.3f} ms a "
+              "cycle", flush=True)
+    t0 = time.perf_counter()
+    for c in cycles:
+        bool(np.isfinite(c[0]).all() and np.isfinite(c[1]).all())
+    print(f"  the host's finiteness check of a cycle's field: "
+          f"{(time.perf_counter() - t0) / TRACE_CYCLES * 1e3:.3f} ms",
+          flush=True)
+    d2h, pairs = device_overlaps(prof)
+    longest = max(pairs, key=lambda x: x[2], default=None)
+    check(bool(pairs),
+          f"{len(d2h)} device-to-host copies in the trace, "
+          f"{len({id(m) for m, _, _ in pairs})} overlapping a kernel"
+          + ("" if longest is None else
+             f"; the longest overlap {longest[2]:.1f} us, {longest[0].name}"
+             f" beside {longest[1].name[:60]}"))
+    return k1.launches - before, torch.as_tensor(background, device=dev)
+
+
+def bench_phase(gt, dev, t_start):
+    """Phase 16: the link rates, `python -m gridpp_tpu_torch.tools.bench`
+    at full size (bench_tool; --repeats BENCH_REPEATS, or 1 when less than
+    BENCH_PHASE_S of the script's SCRIPT_LIMIT_S is left), then
+    stream_trace in process. Launch counts set to 0 before the tool and
+    read after the trace; returns K1's `kernels` entry."""
+    from gridpp_tpu_torch.ops import stencil
+
+    left = SCRIPT_LIMIT_S - (time.perf_counter() - t_start)
+    repeats = BENCH_REPEATS if left > BENCH_PHASE_S else 1
+    print(f"  {left:.1f} s of the script's {SCRIPT_LIMIT_S:.0f} left: "
+          f"--repeats {repeats}", flush=True)
+    link_rates(dev)
+    stencil.neighbourhood_mean_cuda.launches = 0
+    tool_k1 = bench_tool(repeats)
+    launches, x = stream_trace(gt, dev)
+    check(launches == 1 + 8 * TRACE_CYCLES,
+          f"K1 once a cycle in process ({launches} launches)")
+    entry = path_entry(
+        stencil, "the bench tool's Pipeline cycles", "K1", x, 7,
+        int(gt.Mean), tool_k1 + launches,
+        library=lambda: F.avg_pool2d(x[None, None], 15, 1, 7,
+                                     count_include_pad=False)[0, 0])
+    return entry
+
+
 def main():
     t_start = time.perf_counter()
     laps = [t_start]
@@ -3038,6 +3278,13 @@ def main():
           "warm and cold, against its bound]", flush=True)
     torch.cuda.empty_cache()
     roofline_phase(dev)
+
+    # -- 16. the benchmark tool --
+    lap(laps)
+    print("[python -m gridpp_tpu_torch.tools.bench: bench.py's run on the "
+          "card; serve_stream's overlap in a trace]", flush=True)
+    torch.cuda.empty_cache()
+    bench_k = bench_phase(gt, dev, t_start)
     lap(laps)
     print(f"  the script {time.perf_counter() - t_start:.3f} s; each phase "
           f"(the build first): "
@@ -3076,6 +3323,8 @@ def main():
     # stencil's tiles (phase 12); K1, K2 and K3 in the CLI (phase 13); K1,
     # K2 and K4 in the per-operator table (phase 14)
     kernels.extend(parallel_k + cli_k + tools_k)
+    # K1 on the benchmark tool's Pipeline cycles and serve_stream (phase 16)
+    kernels.append(bench_k)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,8 @@ another device rather than moving it.
 """
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -49,19 +51,113 @@ def _as_device(device) -> torch.device:
     return dev
 
 
-def _serve_stream(run_one, cycles):
-    """Serve an iterable of host cycles: run_one(args) queues a cycle on
-    the device and returns its output tensor. Cycle N + 1 is queued before
-    cycle N's result is copied to the host; yields numpy results in
-    order."""
+def _host_f32(arrays):
+    """numpy arrays -> f32 numpy arrays, and whether every value is finite
+    (checked on the host: no device round trip)."""
+    host = [np.asarray(a, np.float32) for a in arrays]
+    return host, all(bool(np.isfinite(a).all()) for a in host)
+
+
+def _serve_stream(pipe, run_one, cycles, n_up=None):
+    """Serve an iterable of host cycles on pipe's device, yielding numpy
+    results in order. The first n_up arrays of a cycle (all by default) are
+    uploaded as f32 tensors; run_one(tensors, ok, args) queues the cycle on
+    the device and returns its output tensor (ok: every uploaded value is
+    finite).
+
+    Cycle N + 1 is queued before cycle N's result is copied to the host, so
+    on a card cycle N's download runs while cycle N + 1 computes, and cycle
+    N + 1's upload while cycle N does (_serve_card). On the CPU the loop is
+    the same without streams."""
+    if pipe.device.type == "cuda":
+        return _serve_card(pipe.device, pipe._copy_streams(), run_one,
+                           cycles, n_up)
+    return _serve_plain(pipe, run_one, cycles, n_up)
+
+
+def _serve_plain(pipe, run_one, cycles, n_up):
     prev = None
     for args in cycles:
-        out = run_one(args)
+        tensors, ok = pipe._upload(*args[:n_up])
+        out = run_one(tensors, ok, args)
         if prev is not None:
             yield prev.cpu().numpy()
         prev = out
     if prev is not None:
         yield prev.cpu().numpy()
+
+
+def _pinned(buf, shape, dtype):
+    """buf if it has this shape and type, else a new pinned host tensor."""
+    if buf is not None and buf.shape == shape and buf.dtype == dtype:
+        return buf
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _serve_card(device, streams, run_one, cycles, n_up):
+    """_serve_stream on a card. Compute runs on the caller's current
+    stream. A cycle's arrays are staged into pinned buffers, two sets used
+    in turn, so cycle N + 1 is staged while cycle N's upload may still read
+    its set, and uploaded on the first copy stream of `streams`, which the
+    compute stream waits on by an event. Cycle N's output is copied down on
+    the second, behind an event recorded after its compute, once cycle
+    N + 1 is queued. The host waits on that copy's event alone and yields
+    a copy of the pinned buffer, so a yielded array stays the caller's
+    while the buffer serves the next cycle. The host copies into and out of
+    the pinned buffers are torch's, on its intra-op threads."""
+    compute = torch.cuda.current_stream(device)
+    up, down = streams
+    staged = [[], []]           # each set's pinned input buffers
+    uploaded = [None, None]     # each set's last upload, as an event
+    fetched = None              # the pinned output buffer
+    prev = None                 # (output, its compute's event), not yet down
+
+    def download(out, done):
+        nonlocal fetched
+        fetched = _pinned(fetched, out.shape, out.dtype)
+        with torch.cuda.stream(down):
+            down.wait_event(done)
+            fetched.copy_(out, non_blocking=True)
+            out.record_stream(down)
+            copied = down.record_event()
+        copied.synchronize()
+        return torch.empty(fetched.shape, dtype=fetched.dtype).copy_(
+            fetched).numpy()
+
+    for i, args in enumerate(cycles):
+        host, ok = _host_f32(args[:n_up])
+        s = i % 2
+        if uploaded[s] is not None:
+            uploaded[s].synchronize()
+        old = staged[s]
+        staged[s] = [_pinned(old[j] if j < len(old) else None, a.shape,
+                             torch.float32) for j, a in enumerate(host)]
+        with warnings.catch_warnings():
+            # a is only read: torch warns of a read-only array all the same
+            warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                    "writable")
+            for buf, a in zip(staged[s], host):
+                buf.copy_(torch.from_numpy(a))
+        with torch.cuda.stream(up):
+            tensors = [buf.to(device, non_blocking=True)
+                       for buf in staged[s]]
+            uploaded[s] = up.record_event()
+        compute.wait_event(uploaded[s])
+        for t in tensors:
+            t.record_stream(compute)
+        out = run_one(tensors, ok, args)
+        done = compute.record_event()
+        if i == 0:
+            # the call's other pinned buffers now, behind the first cycle's
+            # compute, so that a call after a one-cycle warm-up finds them
+            # all in torch's pinned-memory cache (a new one costs tens of ms)
+            staged[1] = [_pinned(None, b.shape, b.dtype) for b in staged[0]]
+            fetched = _pinned(None, out.shape, out.dtype)
+        if prev is not None:
+            yield download(*prev)
+        prev = (out, done)
+    if prev is not None:
+        yield download(*prev)
 
 
 def _obs_nn(grid, points, device):
@@ -93,11 +189,19 @@ class _OnDevice:
             raise ValueError(f"{name} is on {t.device}; this "
                              f"{type(self).__name__} runs on {self.device}")
 
+    def _copy_streams(self):
+        """serve_stream's upload and download streams on the card, made
+        once a pipeline: the caching allocator keeps a stream's freed
+        blocks for that stream, so a later call allocates nothing new."""
+        if getattr(self, "_streams", None) is None:
+            self._streams = (torch.cuda.Stream(self.device),
+                             torch.cuda.Stream(self.device))
+        return self._streams
+
     def _upload(self, *arrays):
         """numpy arrays -> f32 tensors on this device, and whether every
-        value is finite (checked on the host: no device round trip)."""
-        host = [np.asarray(a, np.float32) for a in arrays]
-        ok = all(bool(np.isfinite(a).all()) for a in host)
+        value is finite (_host_f32)."""
+        host, ok = _host_f32(arrays)
         return [torch.as_tensor(a, device=self.device) for a in host], ok
 
 
@@ -364,13 +468,13 @@ class Pipeline(_OnDevice):
 
     def serve_stream(self, cycles):
         """Serve an iterable of host cycles (background, pobs[, pratios]);
-        yields (Y, X) numpy analyses in order (see _serve_stream)."""
-        def run_one(args):
-            (bg, po), ok = self._upload(args[0], args[1])
+        yields (Y, X) numpy analyses in order (see _serve_stream).
+        pratios stays on the host, as in __call__."""
+        def run_one(tensors, ok, args):
             pr = args[2] if len(args) > 2 else None
-            return self.run_device(bg, po, pr, assume_valid=ok)
+            return self.run_device(*tensors, pr, assume_valid=ok)
 
-        return _serve_stream(run_one, cycles)
+        return _serve_stream(self, run_one, cycles, n_up=2)
 
 
 class _EnsembleBase(_OnDevice):
@@ -481,11 +585,10 @@ class EnsiPipeline(_EnsembleBase):
     def serve_stream(self, cycles):
         """Serve an iterable of host cycles (background, pobs, psigmas);
         yields (Y, X, E) numpy analyses in order (see _serve_stream)."""
-        def run_one(args):
-            arrays, ok = self._upload(*args)
-            return self.run_device(*arrays, assume_valid=ok)[0]
+        def run_one(tensors, ok, args):
+            return self.run_device(*tensors, assume_valid=ok)[0]
 
-        return _serve_stream(run_one, cycles)
+        return _serve_stream(self, run_one, cycles)
 
 
 _VARIANTS = ("ebe", "ebesc", "utem")
@@ -571,16 +674,14 @@ class MultiEnsiPipeline(_EnsembleBase):
 
     def __call__(self, background, pobs, pratios, background_corr=None):
         """numpy in, numpy out (one upload, one download)."""
-        return self._run_host(background, pobs, pratios,
-                              background_corr).cpu().numpy()
-
-    def _run_host(self, background, pobs, pratios, background_corr=None):
         extra = () if background_corr is None else (background_corr,)
         args, _ = self._upload(background, pobs, pratios, *extra)
-        return self.run_device(*args)[0]
+        return self.run_device(*args)[0].cpu().numpy()
 
     def serve_stream(self, cycles):
         """Serve an iterable of host cycles (background, pobs, pratios[,
         background_corr]); yields (Y, X, E) numpy analyses in order (see
         _serve_stream)."""
-        return _serve_stream(lambda args: self._run_host(*args), cycles)
+        return _serve_stream(
+            self, lambda tensors, ok, args: self.run_device(*tensors)[0],
+            cycles)

@@ -562,6 +562,92 @@ def test_multi_pipeline_on_card(dev, variant, tol):
     np.testing.assert_allclose(outs["cuda"], outs["cpu"], rtol=0, atol=tol)
 
 
+def _bench_cut(m=256, e=10):
+    """A 256 x 256 cut of bench.py's problem (seed 0, its draws as
+    gridpp_tpu_torch.tools.bench.field_draws makes them): the corner of the
+    2000 x 2000 grid, the stations inside it, their obs, and e members of
+    normal(280, 5) with perturbed obs."""
+    from gridpp_tpu_torch.tools import bench
+    rng = np.random.default_rng(0)
+    lats, lons, plats, plons, background, noise = bench.field_draws(
+        rng, 2000, 10000)
+    inside = ((plats >= lats[0, 0]) & (plats <= lats[m - 1, 0])
+              & (plons >= lons[0, 0]) & (plons <= lons[0, m - 1]))
+    k = int(inside.sum())
+    grid = gt.Grid(lats[:m, :m], lons[:m, :m])
+    pts = gt.Points(plats[inside], plons[inside], np.zeros(k), np.zeros(k))
+    bg = np.ascontiguousarray(background[:m, :m])
+    idx = grid.nearest_map(pts.lats, pts.lons)
+    pobs = bg.reshape(-1)[idx] + noise[inside]
+    ens = rng.normal(280, 5, (m, m, e)).astype(np.float32)
+    pobs_e = (ens.reshape(-1, e)[idx]
+              + rng.normal(0, 1, (k, e))).astype(np.float32)
+    return grid, pts, bg, pobs, ens, pobs_e
+
+
+def _streamed_pipe(kind, dev, cut):
+    """(pipeline on dev, 4 host cycles) of kind at bench.py's settings:
+    Pipeline Mean h=7 (all-valid cycles take the fast path; "general":
+    each cycle's ratios unlike the static ones), EnsiPipeline, or
+    MultiEnsiPipeline ebesc, ebe, utem."""
+    grid, pts, bg, pobs, ens, pobs_e = cut
+    st = gt.BarnesStructure(10000.0)
+    k = pobs.size
+    ratios = np.full(k, 0.1, np.float32)
+    if kind in ("pipeline", "general"):
+        pipe = gt.Pipeline(grid, pts, st, halfwidth=7, statistic=gt.Mean,
+                           max_points=10, ratios=ratios, device=dev)
+        return pipe, [(bg + np.float32(i), pobs + np.float32(i))
+                      + ((ratios * np.float32(1 + i),) if kind == "general"
+                         else ()) for i in range(4)]
+    if kind == "ensi":
+        pipe = gt.EnsiPipeline(grid, pts, st, max_points=10, device=dev)
+        return pipe, [(ens + np.float32(i), pobs,
+                       np.full(k, 1.5, np.float32)) for i in range(4)]
+    pipe = gt.MultiEnsiPipeline(grid, pts, st, variant=kind, max_points=10,
+                                device=dev)
+    po = pobs if kind == "utem" else pobs_e
+    return pipe, [(ens + np.float32(i), po, ratios)
+                  + (() if kind == "ebesc" else (ens - np.float32(i),))
+                  for i in range(4)]
+
+
+@pytest.mark.parametrize("kind", ["pipeline", "general", "ensi", "ebesc",
+                                  "ebe", "utem"])
+def test_serve_stream_on_card_matches_call_loop(dev, kind):
+    """serve_stream on the card (pinned staging, copy streams) yields, in
+    order and bit for bit, what a loop of __call__ gives; the Pipeline
+    launches K1 once a cycle."""
+    pipe, cycles = _streamed_pipe(kind, dev, _bench_cut())
+    k1 = stencil.neighbourhood_mean_cuda
+    before = k1.launches
+    streamed = list(pipe.serve_stream(cycles))
+    if kind in ("pipeline", "general"):
+        assert k1.launches - before == len(cycles)
+    looped = [pipe(*c) for c in cycles]
+    assert len(streamed) == len(cycles)
+    for got, want in zip(streamed, looped):
+        np.testing.assert_array_equal(got, want)
+    assert np.isfinite(streamed[-1]).all()
+    assert not np.array_equal(streamed[0], streamed[1])
+
+
+@pytest.mark.parametrize("kind", ["pipeline", "ensi"])
+def test_serve_stream_yield_outlives_later_cycles(dev, kind):
+    """A yielded analysis is the caller's: two further cycles through the
+    stream's pinned buffers leave it as it was."""
+    pipe, cycles = _streamed_pipe(kind, dev, _bench_cut())
+    stream = pipe.serve_stream(cycles)
+    first = next(stream)
+    kept = first.copy()
+    second, third = next(stream), next(stream)
+    np.testing.assert_array_equal(first, kept)
+    np.testing.assert_array_equal(first, pipe(*cycles[0]))
+    assert not np.shares_memory(first, second)
+    assert not np.shares_memory(second, third)
+    assert len(list(stream)) == 1
+
+
 def test_ensemble_transform_refuses_tf32(dev):
     grid, pts, bg, _, pobs, _ = _ens_problem(n=16, n_obs=20)
     pipe = gt.EnsiPipeline(grid, pts, gt.BarnesStructure(30000.0),

@@ -37,6 +37,7 @@ def test_import_pulls_in_no_jax():
             "import gridpp_tpu_torch.tools.benchmark_ops\n"
             "import gridpp_tpu_torch.tools.scaling\n"
             "import gridpp_tpu_torch.tools.roofline\n"
+            "import gridpp_tpu_torch.tools.bench\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m in ('jax', 'gridpp_tpu', 'benchmark')\n"
             "             or m.startswith(('jax.', 'jaxlib', 'gridpp_tpu.',\n"
