@@ -8,9 +8,10 @@ and its bench on one CUDA card.
 Run from the root of a checkout. In order it:
 1. requires a CUDA card (there is no CPU path) and prints its name and
    power limit; TF32 is switched off for matmul and cuDNN;
-2. builds the kernels K1-K5 and their wide route (csrc/*.cu, one nvcc
-   per source, all started together) and the native host library, and
-   prints the build times and the compiler's resource report;
+2. builds the kernels K1-K5, their wide route and the general graph's
+   conditional node (csrc/*.cu, one nvcc per source, all started
+   together) and the native host library, and prints the build times and
+   the compiler's resource report;
 3. holds every kernel against its plain PyTorch version on the card, on
    K1's cases (2000 x 2000 with 0% and 10% NaN, small edge shapes, a
    batched (3, 256, 300), EnSI's ten 2000 x 2000 member planes with 0% and
@@ -60,7 +61,20 @@ Run from the root of a checkout. In order it:
    the fast, general and resolve paths on distinct inputs plus one cycle
    with a third of the obs missing, and checks: finite output, general ==
    resolve bit for bit, fast within 1e-3 of general, one K1 launch per
-   cycle; prints each path's median cycle time; then the same with Mean
+   cycle (fast and general are captured graphs after their first call: a
+   replay adds its launches to the counts) and one launch of the
+   conditional's setter per general replay; prints each path's median
+   cycle time. Then the captured cycles on that Pipeline, after
+   load_state resets its guard: the 8-cycle validity/ratios sequence
+   through the general graph (general == resolve bit for bit each cycle,
+   rebuilds on cycles 0, 3, 5, 7 by the `rebuilds` counter, every returned
+   analysis unchanged by later cycles, K1 once a cycle); general replays
+   (pratios None, numpy unlike the static ratios, a tensor) and fast ones
+   under set_sync_debug_mode("error"); serve_stream on the general path
+   against a loop of __call__ bit for bit; 3 warm graphed general and fast
+   cycles under torch.profiler (host and device ms, idle share, kernels a
+   replay, K1 once a replay); the conditional node alone on 50 flags
+   against the host's branch, timed. Then the same cycles with Mean
    h=100, each cycle's K1 call through the wide route;
 6. the neighbourhood-statistics path, with every launch count set to 0
    before it and read after: the same Pipeline smoothed with Max h=7
@@ -243,8 +257,10 @@ K4's phase 6's two calls; the wide route of K1, whose launches are phase
 5's h=100 cycles; K1 on phase 11's neighbourhood_score path, one entry a
 halfwidth; K1 on phase 12's padded tile, K2 and K3 on its sharded tiles,
 K1, K2 and K3 in phase 13's CLI; K1, K2 and K4 in phase 14's table; K1
-on phase 16's bench tool and serve_stream cycles), each
-with its time hot (`ms`) and cold (`cold_ms`) and the bound of its count;
+on phase 16's bench tool and serve_stream cycles; the general graph's
+conditional node, with phase 5's general replays and the traces' numbers
+under `graphs`), each with its time hot (`ms`), cold (`cold_ms`, but the
+conditional's one-byte flag) and the bound of its count;
 the last line is {"ok": true, "device": {...}}. Each phase's seconds are
 printed as the next begins.
 """
@@ -408,6 +424,257 @@ def run_cycles(pipe, bgs, obs, gap, rat):
               f"({', '.join(f'{t * 1e3:.3f}' for t in times[path])} ms)",
               flush=True)
     return 3 * CYCLES + 2
+
+
+GRAPH_REBUILT = {0, 3, 5, 7}
+GRAPH_TRACE_CYCLES = 3
+
+
+def graph_cycles(background, pobs, ratios, dev):
+    """The 8-cycle validity/ratios sequence (tests/test_torch_cuda.py::
+    _graph_cycles) as (background, pobs, ratios) tensors: cold; hit; hit;
+    a third of the obs missing; hit; all valid again; hit; ratios 0.05;
+    each cycle's field and obs shifted by its number."""
+    gap = pobs.copy()
+    gap[::3] = np.nan
+    other = np.full_like(ratios, 0.05)
+    return [(torch.as_tensor(background + np.float32(0.5 * i), device=dev),
+             torch.as_tensor((gap if i in (3, 4) else pobs) + np.float32(i),
+                             device=dev),
+             torch.as_tensor(other if i == 7 else ratios, device=dev))
+            for i in range(8)]
+
+
+def busy_us(events):
+    """Microseconds in which at least one of the events (device kernels and
+    copies of a trace) ran: the union of their intervals."""
+    total, end = 0, None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        lo, hi = e.time_range.start, e.time_range.end
+        if end is None or lo >= end:
+            total += hi - lo
+            end = hi
+        elif hi > end:
+            total += hi - end
+            end = hi
+    return total
+
+
+def graph_trace(label, run):
+    """Graphed cycles run(i), warm: GRAPH_TRACE_CYCLES x 4 chained ones
+    timed by the host clock (the host's enqueue ms a cycle, and ms a cycle
+    up to a synchronised device), then GRAPH_TRACE_CYCLES under
+    torch.profiler, after one in its warm-up step: host ms a cycle, device
+    ms a cycle (busy_us: the union of its kernels and copies), the idle
+    share of the profiled window and of the unprofiled chained cycle,
+    kernels a cycle and K1's (the strip kernel's) launches. A trace
+    that shows fewer K1 launches than cycles (a partial one) is taken
+    again, up to three times in all. Printed and returned as a dict."""
+    n = GRAPH_TRACE_CYCLES
+    run(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(4 * n):
+        run(i % n)
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    chained = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(3):
+        # one cycle in the profiler's warm-up step, then the n recorded
+        with torch.profiler.profile(
+                activities=acts, acc_events=True,
+                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                 active=1)) as prof:
+            run(0)
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            for i in range(n):
+                run(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+        # the step's own annotation spans the step on the device too
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
+        kernels = [e for e in events if not e.name.startswith(("Memcpy",
+                                                               "Memset"))]
+        k1 = sum("strip_kernel" in e.name for e in kernels)
+        if k1 >= n:
+            break
+        names = {}
+        for e in kernels:
+            names[e.name[:50]] = names.get(e.name[:50], 0) + 1
+        print(f"  {label}: trace {attempt} shows K1 {k1} times in {n} "
+              f"cycles ({len(kernels)} kernels: {names}): a partial trace, "
+              "taken again", flush=True)
+    dev_us = busy_us(events)
+    out = {"enqueue_ms": enqueue / (4 * n) * 1e3,
+           "chained_ms": chained / (4 * n) * 1e3,
+           "host_ms": wall / n * 1e3, "device_ms": dev_us / n / 1e3,
+           "idle": 1 - dev_us / 1e6 / wall, "kernels": len(kernels) / n,
+           "k1": k1}
+    out["idle_chained"] = 1 - out["device_ms"] / out["chained_ms"]
+    print(f"  {label}, graphed: {4 * n} chained cycles {out['chained_ms']:.3f}"
+          f" ms a cycle (host enqueue {out['enqueue_ms']:.3f} ms); {n} under "
+          f"torch.profiler: host {out['host_ms']:.3f} ms a cycle, device "
+          f"{out['device_ms']:.3f} ms a cycle, idle share {out['idle']:.3f} "
+          f"(of the chained cycle {out['idle_chained']:.3f}), "
+          f"{out['kernels']:.1f} kernels a cycle, K1 {k1} in {n}",
+          flush=True)
+    return out
+
+
+def graph_checks(gt, stencil, dev, pipe, background, pobs, ratios):
+    """Phase 5's checks of the captured cycles on its Pipeline (bench.py's
+    configuration, Mean h=7), after load_state gives it a fresh guard: the
+    8-cycle sequence through the general graph (general == resolve bit for
+    bit every cycle, rebuilds exactly on cycles 0, 3, 5, 7 by the
+    `rebuilds` counter, each returned analysis unchanged after the next
+    cycle, K1 once a cycle and the conditional's setter once a replay);
+    replays of general (pratios None, numpy unlike the static ratios, a
+    tensor) and fast (assume_valid) under set_sync_debug_mode("error");
+    serve_stream on the general path (ratios unlike the static ones, a
+    rebuild each cycle) against a loop of __call__ bit for bit; a
+    torch.profiler trace of 3 warm graphed general and fast cycles, K1
+    once a replay in it."""
+    from gridpp_tpu_torch.ops import graph
+    t0 = time.perf_counter()
+    pipe.load_state(pipe.state())
+    check(int(pipe.rebuilds) == 0, "load_state: a fresh guard, graphs "
+          "dropped")
+    cycles = graph_cycles(background, pobs, ratios, dev)
+    k1 = stencil.neighbourhood_mean_cuda
+    k1.launches = graph.begin_if.launches = 0
+    general, kept, counts = [], [], []
+    for b, po, ra in cycles:
+        general.append(pipe.run_device(b, po, ra, path="general"))
+        kept.append(general[-1].clone())
+        counts.append(int(pipe.rebuilds))
+    n = len(cycles)
+    check(k1.launches == n and graph.begin_if.launches == n - 1,
+          f"{n} general cycles: K1 {k1.launches} launches (one eager, one "
+          f"a replay), the setter {graph.begin_if.launches} (one a replay)")
+    rebuilt = {i for i, c in enumerate(counts)
+               if c != (counts[i - 1] if i else 0)}
+    check(rebuilt == GRAPH_REBUILT, f"rebuilds on cycles {sorted(rebuilt)}"
+          f" (counter {counts})")
+    same = [torch.equal(g, pipe.run_device(b, po, ra, path="resolve"))
+            for g, (b, po, ra) in zip(general, cycles)]
+    check(all(same), f"general == resolve bit for bit on all {n} cycles")
+    check(all(torch.equal(g, k) for g, k in zip(general, kept))
+          and all(bool(torch.isfinite(g).all()) for g in general),
+          "every returned analysis finite and unchanged by later cycles")
+
+    bgs = [c[0] for c in cycles[:3]]
+    po = cycles[0][1]
+    other = np.full(ratios.shape, 0.2, np.float32)
+    forms = {"general, pratios None": dict(path="general"),
+             "general, numpy pratios": dict(path="general", pratios=other),
+             "general, tensor pratios": dict(
+                 path="general", pratios=torch.as_tensor(other, device=dev)),
+             "fast": dict(path="fast", assume_valid=True)}
+    for kw in forms.values():
+        pipe.run_device(bgs[0], po, **kw)
+    torch.cuda.synchronize()
+    outs = {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for label, kw in forms.items():
+            outs[label] = [pipe.run_device(b, po, **kw) for b in bgs[1:]]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for label, kw in forms.items():
+        pr = kw.get("pratios", ratios)
+        want = [pipe.run_device(b, po, pr, path="resolve") for b in bgs[1:]]
+        if kw["path"] == "general":
+            ok = all(torch.equal(g, w) for g, w in zip(outs[label], want))
+        else:
+            ok = max(float((g - w).abs().max())
+                     for g, w in zip(outs[label], want)) <= FAST_TOL
+        check(ok, f"{label}: {len(bgs) - 1} replays under "
+                  "set_sync_debug_mode('error'), no host synchronisation, "
+                  "answers as resolve's")
+
+    host = [(background + np.float32(i), pobs + np.float32(i),
+             ratios * np.float32(1.5 + i)) for i in range(3)]
+    streamed = list(pipe.serve_stream(host))
+    looped = [pipe(*c) for c in host]
+    check(len(streamed) == len(host) and all(
+        np.array_equal(a, b) for a, b in zip(streamed, looped)),
+        f"serve_stream on the general path: {len(host)} analyses == a loop "
+        "of __call__ bit for bit")
+
+    traces = {}
+    for label, kw in (("general", dict(path="general")),
+                      ("fast", dict(path="fast", assume_valid=True))):
+        traces[label] = graph_trace(label, lambda i: pipe.run_device(
+            bgs[i], po, **kw))
+        check(traces[label]["k1"] == GRAPH_TRACE_CYCLES,
+              f"{label}: K1's kernel once a replay in the trace")
+    print(f"  graph checks {time.perf_counter() - t0:.3f} s", flush=True)
+    return traces
+
+
+def cond_entry(launches, traces):
+    """The `kernels` entry of the general graph's conditional (the setter
+    kernel of csrc/graph_cond.cu and its IF node): a graph of the setter
+    and an IF node whose body adds 1 to a count, replayed on 50 flags,
+    against the plain version (the host reads the flag and adds); a
+    replay's time beside the plain version's; bound: one byte read and one
+    operation (tools.roofline.bound)."""
+    from gridpp_tpu_torch.ops import graph
+    from gridpp_tpu_torch.tools import roofline
+    dev = torch.device("cuda", torch.cuda.current_device())
+    flags = [True, False, True, True, False] * 10
+    on = {f: torch.tensor(f, device=dev) for f in (True, False)}
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    g = graph.Graphed(dev, torch.cuda.graph_pool_handle())
+    before = graph.begin_if.launches
+
+    def body(p):
+        g.if_node(p, lambda: count.add_(1))
+        return count
+
+    g.capture(body, (on[True],))
+    for f in flags:
+        card = g(on[f])
+    plain = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def host_branch(p):
+        if bool(p):
+            plain.add_(1)
+        return plain
+
+    for f in flags:
+        host_branch(on[f])
+    err = abs(int(card) - int(plain))
+    check(err == 0 and int(card) == sum(flags),
+          f"the conditional on {len(flags)} flags: {int(card)} bodies run, "
+          f"the host's branch {int(plain)}")
+    entry = {"name": "gc_begin_if (the general graph's conditional node)",
+             "route": "cuda",
+             "source": "gridpp_tpu_torch/csrc/graph_cond.cu",
+             "replaces": "gridpp_tpu/api/pipeline.py:257",
+             "launches": launches, "max_abs_err": float(err),
+             "ms": event_ms(lambda: g(on[True])),
+             "plain_ms": event_ms(lambda: host_branch(on[True]))}
+    times = device_ms(lambda: g(on[False]), by_kernel=True)
+    entry["device_ms"] = next((v for k, v in (times or {}).items()
+                               if "set_conditional" in k), None)
+    entry["bound_ms"], entry["bound_by"] = roofline.bound(
+        (1, 1, "int32"), roofline.peaks()[1])
+    entry["library_ms"] = None
+    entry["graphs"] = traces
+    graph.begin_if.launches = before
+    g.close()
+    print(f"  the conditional: a replay {entry['ms']:.4f} ms (setter alone "
+          f"{entry['device_ms']}), the host's branch {entry['plain_ms']:.4f}"
+          f" ms, bound {entry['bound_ms']:.3g} ms", flush=True)
+    return entry
 
 
 def lap(laps):
@@ -2620,6 +2887,7 @@ def main():
     import gridpp_tpu_torch as gt
     from gridpp_tpu_torch import native
     from gridpp_tpu_torch._build import build_log
+    from gridpp_tpu_torch.ops import graph
     from gridpp_tpu_torch.ops import neighbourhood as nops
     from gridpp_tpu_torch.ops import stencil
 
@@ -2637,14 +2905,16 @@ def main():
 
     def timed_build(name):
         t = time.perf_counter()
-        lib = stencil.build_kernel(name)
+        lib = (graph.build_conditional() if name == "graph_cond"
+               else stencil.build_kernel(name))
         return lib, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(stencil.KERNELS)) as pool:
-        builds = dict(zip(stencil.KERNELS,
-                          pool.map(timed_build, stencil.KERNELS)))
-    print(f"  K1-K5 and the wide route: {len(builds)} nvcc in parallel, "
+    sources = list(stencil.KERNELS) + ["graph_cond"]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = dict(zip(sources, pool.map(timed_build, sources)))
+    print(f"  K1-K5, the wide route and the graph conditional: "
+          f"{len(builds)} nvcc in parallel, "
           f"{time.perf_counter() - t0:.3f} s in all", flush=True)
     for name, (lib, secs) in builds.items():
         print(f"  -- {name}: {secs:.3f} s\n{build_log(lib)}", flush=True)
@@ -3057,13 +3327,23 @@ def main():
     pipe = pipeline(mean)
     for w in wrappers.values():
         w.launches = 0
+    graph.begin_if.launches = 0
     n_cycles = run_cycles(pipe, bgs, obs, gap, rat)
-    launches = {"K1": stencil.neighbourhood_mean_cuda.launches}
+    launches = {"K1": stencil.neighbourhood_mean_cuda.launches,
+                "cond": graph.begin_if.launches}
     check(launches["K1"] == n_cycles,
           f"K1 launched once per cycle ({launches['K1']} launches, "
           f"{n_cycles} cycles)")
+    check(launches["cond"] == CYCLES,
+          f"the conditional's setter once per general replay "
+          f"({launches['cond']} launches: {CYCLES - 1} cycles after the "
+          "first and the obs-gap cycle)")
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
           " GB", flush=True)
+    print("  [the captured cycles: guard sequence, no host sync, "
+          "serve_stream, profile]", flush=True)
+    traces = graph_checks(gt, stencil, dev, pipe, background, pobs, ratios)
+    cond_k = cond_entry(launches["cond"], traces)
     del pipe
 
     lap(laps)
@@ -3325,6 +3605,9 @@ def main():
     kernels.extend(parallel_k + cli_k + tools_k)
     # K1 on the benchmark tool's Pipeline cycles and serve_stream (phase 16)
     kernels.append(bench_k)
+    # the general graph's conditional node (phase 5), the setter's launches
+    # those of phase 5's general replays
+    kernels.append(cond_k)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,15 @@ ensi_multi schemes (ebe, ebesc, utem).
 All geometry lives on the device given to the constructor, and a cycle's
 tensors must already be there: `run_device` raises on a tensor that is on
 another device rather than moving it.
+
+On a card, a tiled Pipeline's fast and general cycles are captured CUDA
+graphs (ops/graph.py), the counterparts of gridpp_tpu's jitted cycles: the
+first call of a path runs eagerly and captures its graph, later calls
+replay it. The general path's guard branches on the device, under a
+conditional graph node, as gridpp_tpu's does under lax.cond, so neither
+path waits on the host after its first call. The resolve path and the flat
+(small-grid) path stay eager, as do the ensemble pipelines; on the CPU
+every path runs eagerly and the guard branches on the host.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 from ..constants import Statistic
 from ..core.grid import Grid
 from ..core.points import Points
+from ..ops import graph
 from ..ops import oi_ensi_multi as mops
 from ..ops import oi_tiled as tiled_ops
 from ..ops import stencil
@@ -42,6 +52,22 @@ _GEOM_TYPES = {"tile_table": torch.int32, "local_idx": torch.int32,
                "tile_static": torch.float32}
 _WEIGHT_TYPES = {"local_s": torch.int32, "valid_s": torch.bool,
                  "weights": torch.float32, "a_scalar": torch.float32}
+_RING = 4   # pinned staging buffers of numpy pratios, used in turn
+
+
+def _host_if(pred, body):
+    """The guard's branch on the CPU: read the flag, run body if set."""
+    if pred.is_cuda:
+        raise RuntimeError("the guard's flag is not read on the host on a "
+                           "card")
+    if bool(pred):
+        body()
+
+
+def _run_body(pred, body):
+    """The guard's branch in a graph's first, eager cycle: its state is
+    fresh (init 0), so the flag is set without reading it."""
+    body()
 
 
 def _as_device(device) -> torch.device:
@@ -250,9 +276,15 @@ class Pipeline(_OnDevice):
                                candidates)
 
         self._static_w = None
-        self._gw_state = None
         self._init_ratios = (None if ratios is None
                              else np.asarray(ratios, np.float32))
+        # the static ratios' device copy, and the pinned staging ring of
+        # other numpy pratios (_stage)
+        self._init_dev = (None if ratios is None else torch.as_tensor(
+            self._init_ratios, device=self.device))
+        self._ring = [[None, None] for _ in range(_RING)]
+        self._ring_next = 0
+        self._graphs = {}
         self.tiled = n >= 65536 if tiled is None else bool(tiled)
         if self.tiled:
             static_np = _resolved_fields(points, structure, origin)
@@ -293,16 +325,20 @@ class Pipeline(_OnDevice):
         static_keys (gridpp_tpu's TileGeometry names), and optionally the
         static weights local_s, valid_s, weights, a_scalar. Without the
         weights they are built here when the Pipeline has static ratios.
-        The cached weights of the general path are dropped.
+        The general path's guard starts afresh (its cached weights and
+        `rebuilds` count), and the captured graphs are dropped: every
+        geometry address changes.
         """
         if not self.tiled:
             raise ValueError("load_state needs a tiled Pipeline")
+        for g in self._graphs.values():
+            g.close()
+        self._graphs = {}
         self._geom_dev = {
             key: torch.tensor(np.asarray(arrays[key]), dtype=dt,
                               device=self.device)
             for key, dt in _GEOM_TYPES.items()}
         self._static_keys = tuple(arrays["static_keys"])
-        self._gw_state = None
         if "weights" in arrays:
             self._static_w = {
                 key: torch.tensor(np.asarray(arrays[key]), dtype=dt,
@@ -311,10 +347,42 @@ class Pipeline(_OnDevice):
         elif self._init_ratios is not None:
             self._static_w = tiled_ops.build_static_weights(
                 self.structure, self._geom_dev, self._static_keys,
-                torch.as_tensor(self._init_ratios, device=self.device),
-                self.max_points)
+                self._init_dev, self.max_points)
         else:
             self._static_w = None
+        self._guard = self._zero_guard()
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+
+    def _zero_guard(self):
+        """The general path's guard state on the device, allocated once:
+        gridpp_tpu's zero_state() (gridpp_tpu/api/pipeline.py:271-280) and
+        the a_scalar rows, plus `rebuilds`, the count of rebuilt cycles."""
+        t_count, tb, k_cap = self._geom_dev["local_idx"].shape
+        s_cap = min(self.max_points, k_cap) if self.max_points > 0 \
+            else k_cap
+        n_obs = self.points.size()
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        state = {key: zeros((t_count, tb) if key == "a_scalar"
+                            else (t_count, tb, s_cap), dt)
+                 for key, dt in _WEIGHT_TYPES.items()}
+        state.update(init=zeros((), torch.int32),
+                     valid=zeros(n_obs, torch.float32),
+                     ratios=zeros(n_obs, torch.float32),
+                     rebuilds=zeros((), torch.int64))
+        return state
+
+    @property
+    def rebuilds(self) -> torch.Tensor:
+        """How many general cycles rebuilt the cached weights since
+        construction or load_state: a 0-dim int64 tensor on this device
+        (reading it waits for the device)."""
+        if not self.tiled:
+            raise ValueError("rebuilds needs a tiled Pipeline")
+        return self._guard["rebuilds"]
 
     def state(self):
         """The tiled path's device state as numpy arrays (see load_state)."""
@@ -370,51 +438,107 @@ class Pipeline(_OnDevice):
             torch.ones_like(bg_t), packed, self.max_points, self.allow)
         return tiled_ops.untile_fields(out_t, self._geom)
 
-    def _run_guarded(self, background, pobs, pratios):
-        """The general path: gain rows cached across cycles and rebuilt
-        only when the obs validity or the ratios change. Equal to the
-        re-solve bit for bit: both build the gain rows with
-        build_weights_dynamic and apply them with oi_tiled_apply_weights,
-        on the same shapes. The guard reads one flag on the host per
-        cycle (gridpp_tpu branches on the device with lax.cond)."""
+    def _run_guarded(self, background, pobs, pratios, branch=_host_if,
+                     out=None):
+        """The general path: gain rows cached across cycles in the guard's
+        buffers and rebuilt only when the obs validity or the ratios
+        change. Equal to the re-solve bit for bit: both build the gain rows
+        with build_weights_dynamic and apply them with
+        oi_tiled_apply_weights, on the same shapes. branch(changed,
+        rebuild) takes the guard's branch: on the host on the CPU, as a
+        conditional node of the graph on a card (gridpp_tpu: lax.cond).
+        out: the (T, TB) tensor the analysis tiles go to (the graph's
+        static buffer), or None."""
         smoothed, pback, valid01 = self._inputs(background, pobs)
-        st = self._gw_state
-        changed = st is None or bool(
-            torch.any(valid01 != st["valid"])
-            | torch.any(pratios != st["ratios"]))
-        if changed:
-            st = self._gw_state = {
-                "valid": valid01, "ratios": pratios.clone(),
-                "weights": tiled_ops.build_weights_dynamic(
-                    self.structure, self._geom_dev, self._static_keys,
-                    pratios, valid01, self.max_points)}
+        st = self._guard
+        changed = ((st["init"] == 0) | torch.any(valid01 != st["valid"])
+                   | torch.any(pratios != st["ratios"]))
+
+        def rebuild():
+            tiled_ops.build_weights_dynamic(
+                self.structure, self._geom_dev, self._static_keys, pratios,
+                valid01, self.max_points, out=st)
+            st["valid"].copy_(valid01)
+            st["ratios"].copy_(pratios)
+            st["init"].fill_(1)
+            st["rebuilds"].add_(1)
+
+        branch(changed, rebuild)
         innov = torch.where(valid01 > 0, pobs - pback, 0.0)
         out_t = tiled_ops.oi_tiled_apply_weights(
-            st["weights"], self._geom_dev["tile_table"],
-            tiled_ops.tile_fields(smoothed, self._geom), innov, self.allow)
+            st, self._geom_dev["tile_table"],
+            tiled_ops.tile_fields(smoothed, self._geom), innov, self.allow,
+            out=out)
         return tiled_ops.untile_fields(out_t, self._geom)
 
-    def _run_fast(self, background, pobs):
-        """Static-network path: gain rows fixed at construction."""
+    def _run_fast(self, background, pobs, branch=None, out=None):
+        """Static-network path: gain rows fixed at construction (no
+        branch; out as in _run_guarded)."""
         smoothed = self._smooth(background)
         innov = pobs - smoothed.reshape(-1)[self._obs_nn]
         out_t = tiled_ops.oi_tiled_apply_weights(
             self._static_w, self._geom_dev["tile_table"],
-            tiled_ops.tile_fields(smoothed, self._geom), innov, self.allow)
+            tiled_ops.tile_fields(smoothed, self._geom), innov, self.allow,
+            out=out)
         return tiled_ops.untile_fields(out_t, self._geom)
+
+    def _cycle(self, path, run, *args):
+        """One fast or general cycle of a tiled grid: eager on the CPU. On
+        a card the path's first call runs eagerly on its graph's stream
+        (its answer is returned), then captures the cycle on static
+        buffers; later calls replay the graph (ops/graph.Graphed). A
+        capture that fails raises."""
+        if self.device.type != "cuda":
+            return run(*args)
+        g = self._graphs.get(path)
+        if g is not None:
+            return g(*args)
+        g = graph.Graphed(self.device, self._pool)
+        first = g.warm(lambda: run(*args, branch=_run_body))
+        tiles = g.buffer(self._geom_dev["local_idx"].shape[:2])
+        g.capture(lambda *a: run(*a, branch=g.if_node, out=tiles), args)
+        self._graphs[path] = g
+        return first
 
     # -- entry points -------------------------------------------------------
     def _ratios(self, pratios):
+        """pratios as an f32 tensor on this device, with no host wait on a
+        card: None and numpy ratios equal to the static ones give their
+        device copy, other numpy ratios go up through a pinned buffer
+        (_stage), a tensor goes as it is."""
         if pratios is None:
-            pratios = self._init_ratios
-        if pratios is None:
-            raise ValueError("pratios required (Pipeline built without "
-                             "ratios)")
+            if self._init_dev is None:
+                raise ValueError("pratios required (Pipeline built without "
+                                 "ratios)")
+            return self._init_dev
         if isinstance(pratios, torch.Tensor):
             self._check(pratios, "pratios")
             return pratios.to(torch.float32)
-        return torch.as_tensor(np.asarray(pratios, np.float32),
-                               device=self.device)
+        host = np.asarray(pratios, np.float32)
+        if self._init_ratios is not None and np.array_equal(
+                host, self._init_ratios):
+            return self._init_dev
+        if self.device.type == "cuda":
+            return self._stage(host)
+        return torch.as_tensor(host, device=self.device)
+
+    def _stage(self, host):
+        """host (numpy f32) on the card by a non-blocking copy from the
+        next pinned buffer of the ring. The host refills a buffer only
+        after the event of its last copy, so it never overwrites one that
+        a queued copy still reads."""
+        slot = self._ring[self._ring_next]
+        self._ring_next = (self._ring_next + 1) % _RING
+        buf, copied = slot
+        if buf is None or tuple(buf.shape) != host.shape:
+            buf = torch.empty(host.shape, dtype=torch.float32,
+                              pin_memory=True)
+        elif copied is not None:
+            copied.synchronize()
+        buf.numpy()[...] = host
+        out = buf.to(self.device, non_blocking=True)
+        slot[:] = [buf, torch.cuda.current_stream(self.device).record_event()]
+        return out
 
     def _fast_eligible(self, pratios):
         if self._static_w is None:
@@ -428,7 +552,8 @@ class Pipeline(_OnDevice):
 
     def _run(self, background, pobs, pratios):
         if self.tiled:
-            return self._run_guarded(background, pobs, pratios)
+            return self._cycle("general", self._run_guarded, background,
+                               pobs, pratios)
         return self._run_flat(background, pobs, pratios)
 
     def run_device(self, background, pobs, pratios=None,
@@ -441,7 +566,12 @@ class Pipeline(_OnDevice):
         when eligible), "fast" (require the static-ratios weight path),
         "general" (on tiled grids, the cached gain rows rebuilt only when
         obs validity or ratios change) or "resolve" (the full tiled
-        re-solve every cycle).
+        re-solve every cycle, eager). On a card, after a path's first call
+        a tiled fast or general cycle is a graph replay that waits on
+        nothing on the host, with pratios None, numpy or a tensor, but for
+        a tensor pratios on path "auto" (copied down to compare with the
+        static ratios) and the all-finite check without assume_valid.
+        The returned tensor is the caller's: later cycles leave it as is.
         """
         if path not in _PATHS:
             raise ValueError(f"path must be one of {_PATHS}")
@@ -457,7 +587,7 @@ class Pipeline(_OnDevice):
         if self._fast_eligible(pratios):
             if assume_valid or bool(torch.isfinite(pobs).all()
                                     & torch.isfinite(background).all()):
-                return self._run_fast(background, pobs)
+                return self._cycle("fast", self._run_fast, background, pobs)
         return self._run(background, pobs, self._ratios(pratios))
 
     def __call__(self, background, pobs, pratios=None):

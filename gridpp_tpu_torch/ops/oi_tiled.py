@@ -210,7 +210,7 @@ def build_static_weights(structure, geom_dev, static_keys, ratios,
 
 def build_weights_dynamic(structure, geom_dev, static_keys, ratios,
                           obs_valid, max_points: int,
-                          tiles_per_step: int = 256):
+                          tiles_per_step: int = 256, out=None):
     """Per-gridpoint OI gain rows for this cycle's obs validity and ratios.
 
     The cycle's expensive half — masked top-S re-selection on the stored
@@ -219,7 +219,9 @@ def build_weights_dynamic(structure, geom_dev, static_keys, ratios,
     result across cycles (api/pipeline.py).
 
     ratios: (P,) f32; obs_valid: (P,) f32 0/1. Returns {local_s, valid_s,
-    weights, a_scalar} as build_static_weights does.
+    weights, a_scalar} as build_static_weights does: new tensors, or the
+    caller's `out` (a dict holding those four, of their shapes and types;
+    other keys are left alone), written in place with the same bits.
     """
     local_idx = geom_dev["local_idx"]
     tile_table = geom_dev["tile_table"].long()
@@ -229,7 +231,8 @@ def build_weights_dynamic(structure, geom_dev, static_keys, ratios,
     table = torch.cat([geom_dev["tile_static"],
                        torch.stack([ratios[tile_table],
                                     obs_valid[tile_table]], dim=-1)], dim=-1)
-    out = _weights_out(t_count, tb, s_cap, local_idx.device)
+    if out is None:
+        out = _weights_out(t_count, tb, s_cap, local_idx.device)
     for t0 in range(0, t_count, tiles_per_step):
         t1 = min(t0 + tiles_per_step, t_count)
         b = (t1 - t0) * tb
@@ -256,18 +259,20 @@ def build_weights_dynamic(structure, geom_dev, static_keys, ratios,
 
 def oi_tiled_apply_weights(weights, tile_table, background_t, innov,
                            allow_extrapolation: bool,
-                           tiles_per_step: int = 1024):
+                           tiles_per_step: int = 1024, out=None):
     """Apply gain rows: analysis = background + weights . innovations.
 
     weights: from build_static_weights / build_weights_dynamic. innov: (P,)
     obs minus background at the obs, 0 where invalid, this cycle.
-    background_t: (T, TB). Returns (T, TB).
+    background_t: (T, TB). Returns (T, TB): a new tensor, or `out` (the
+    serving graphs' static buffer) written in place with the same bits.
     """
     local_s = weights["local_s"]
     valid_s = weights["valid_s"]
     t_count, tb, s_cap = local_s.shape
     table = innov[tile_table.long()][:, :, None]  # (T, C, 1)
-    out = torch.empty_like(background_t)
+    if out is None:
+        out = torch.empty_like(background_t)
     for t0 in range(0, t_count, tiles_per_step):
         t1 = min(t0 + tiles_per_step, t_count)
         b = (t1 - t0) * tb

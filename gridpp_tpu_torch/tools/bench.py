@@ -25,16 +25,20 @@ bandwidth of `a + 1` on 4096² f32 (8 chained, best of 3), the best-of-reps
 (4 cycles) and ensi (3 cycles) a serial upload, compute and download loop
 beside `serve_stream`, back to back on the same host cycles.
 
-The `general` path reads the guard's flag on the host every cycle
-(api/pipeline.py, Pipeline._run_guarded), so its chained cycles
-synchronise one by one; it is measured as it is.
+On a card the fast and general paths are captured CUDA graphs
+(api/pipeline.py, ops/graph.py): the warm cycle runs eagerly and captures
+the graph, the timed cycles replay it, and the general path's guard
+branches on the device under a conditional graph node, so chained cycles
+queue with no host wait between them. general_resolve and the ensemble
+paths run eagerly.
 
 Checks (any failure exits 1 and prints no JSON): the last `general` output
 equals the last `general_resolve` output bit for bit; `fast` within 1e-3
 of `general`; every output finite; the `serve_stream` analyses equal the
 serial loop's bit for bit; on a card K1 launched once per cycle of the
 three deterministic paths and of the fast serving loops (its wrapper's
-counter; no launch on the CPU).
+counter, to which a graph replay adds the launches it makes; no launch on
+the CPU).
 
 Prints progress and each stage's seconds to stderr and one JSON line to
 stdout: every key of bench.py's line with its meaning, unrounded, plus

@@ -18,7 +18,10 @@ device route match their host route (nearest equal; bilinear, MinMax and
 the curves rtol 1e-6, atol 1e-4), reuse the map's tensors, make no CPU
 tensor before their final copy, and calc_gradient's LinearRegression is
 five K1 launches whose gradient is within K1's bars carried through the
-regression (ROADMAP F9).
+regression (ROADMAP F9). A tiled Pipeline's captured cycles replay with no
+host synchronisation (set_sync_debug_mode "error"), and at 2000 x 2000
+with 10,000 obs its general graph equals the re-solve bit for bit on every
+cycle of a validity/ratios sequence, rebuilding exactly where they change.
 
 This file imports no jax, so it also runs on a machine with the card and
 no JAX installed:
@@ -646,6 +649,109 @@ def test_serve_stream_yield_outlives_later_cycles(dev, kind):
     assert not np.shares_memory(first, second)
     assert not np.shares_memory(second, third)
     assert len(list(stream)) == 1
+
+
+def _graph_cycles(bg, pobs, ratios, dev):
+    """The 8-cycle validity/ratios sequence of
+    tests/test_torch_pipeline_graph.py on the card: cold; hit; hit; a
+    third of the obs missing (rebuild); hit; all valid again (rebuild);
+    hit; ratios 0.05 (rebuild). (background, pobs, ratios) tensors."""
+    gap = pobs.copy()
+    gap[::3] = np.nan
+    other = np.full_like(ratios, 0.05)
+    return [(torch.as_tensor(bg + np.float32(0.5 * i), device=dev),
+             torch.as_tensor((gap if i in (3, 4) else pobs) + np.float32(i),
+                             device=dev),
+             torch.as_tensor(other if i == 7 else ratios, device=dev))
+            for i in range(8)]
+
+
+GRAPH_REBUILT = {0, 3, 5, 7}
+
+
+def test_graphed_cycles_wait_on_nothing_on_the_host(dev):
+    """After a path's first call, replays of the general and fast graphs
+    under torch.cuda.set_sync_debug_mode("error"), with assume_valid=True
+    and pratios None, numpy unlike the static ratios and a tensor: no
+    synchronisation; the answers equal the resolve path's."""
+    grid, pts, bg, pobs, _, _ = _bench_cut()
+    k = pobs.size
+    ratios = np.full(k, 0.1, np.float32)
+    pipe = gt.Pipeline(grid, pts, gt.BarnesStructure(10000.0), halfwidth=7,
+                       statistic=gt.Mean, max_points=10, ratios=ratios,
+                       device=dev)
+    bgs = [torch.as_tensor(bg + np.float32(i), device=dev) for i in range(3)]
+    po = torch.as_tensor(pobs, device=dev)
+    other = np.full(k, 0.2, np.float32)
+    other_t = torch.as_tensor(other, device=dev)
+    forms = [dict(path="general"), dict(path="general", pratios=other),
+             dict(path="general", pratios=other_t),
+             dict(path="fast", assume_valid=True), dict(assume_valid=True)]
+    for kw in forms:  # first calls: capture, pinned buffers
+        pipe.run_device(bgs[0], po, **kw)
+    torch.cuda.synchronize()
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in bgs[1:]:
+            for kw in forms:
+                outs.append(pipe.run_device(b, po, **kw))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for i, b in enumerate(bgs[1:]):
+        for j, kw in enumerate(forms):
+            got = outs[i * len(forms) + j]
+            pr = kw.get("pratios")
+            want = pipe.run_device(b, po, ratios if pr is None else pr,
+                                   path="resolve")
+            if kw.get("path") == "general":
+                assert torch.equal(got, want), kw
+            else:
+                assert float((got - want).abs().max()) <= 1e-3, kw
+
+
+def test_graphed_general_sequence_at_full_size(dev):
+    """bench.py's Pipeline (2000 x 2000, 10,000 obs, Mean h=7,
+    max_points 10): the 8-cycle sequence through the general graph equals
+    the eager re-solve bit for bit on every cycle, rebuilds exactly on the
+    cycles whose validity or ratios changed (the `rebuilds` counter), keeps
+    each returned analysis as it was after the next cycle, and launches K1
+    once a cycle (the first eager, then one a replay); fast stays within
+    1e-3 of general on the all-valid cycles."""
+    from gridpp_tpu_torch.ops import graph
+    from gridpp_tpu_torch.tools import bench
+    lats, lons, plats, plons, background, noise = bench.field_draws(
+        np.random.default_rng(0), 2000, 10000)
+    grid = gt.Grid(lats, lons)
+    p = plats.size
+    pts = gt.Points(plats, plons, np.zeros(p), np.zeros(p))
+    pobs = (background.reshape(-1)[grid.nearest_map(plats, plons)]
+            + noise).astype(np.float32)
+    ratios = np.full(p, 0.1, np.float32)
+    pipe = gt.Pipeline(grid, pts, gt.BarnesStructure(10000.0), halfwidth=7,
+                       statistic=gt.Mean, max_points=10, ratios=ratios,
+                       device=dev)
+    cycles = _graph_cycles(background, pobs, ratios, dev)
+    k1 = stencil.neighbourhood_mean_cuda
+    k1.launches = graph.begin_if.launches = 0
+    general, kept, counts = [], [], []
+    for b, po, ra in cycles:
+        general.append(pipe.run_device(b, po, ra, path="general"))
+        kept.append(general[-1].clone())
+        counts.append(int(pipe.rebuilds))
+    assert k1.launches == len(cycles)
+    assert graph.begin_if.launches == len(cycles) - 1
+    rebuilt = {i for i, n in enumerate(counts)
+               if n != (counts[i - 1] if i else 0)}
+    assert rebuilt == GRAPH_REBUILT
+    for i, (b, po, ra) in enumerate(cycles):
+        assert torch.equal(general[i], kept[i])
+        assert torch.isfinite(general[i]).all()
+        assert torch.equal(general[i], pipe.run_device(b, po, ra,
+                                                       path="resolve"))
+        if i not in (3, 4, 7):
+            fast = pipe.run_device(b, po, path="fast", assume_valid=True)
+            assert float((fast - general[i]).abs().max()) <= 1e-3
 
 
 def test_ensemble_transform_refuses_tf32(dev):

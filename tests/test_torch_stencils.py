@@ -227,13 +227,17 @@ def test_member_plan_chunks_members_or_raises():
 
 
 def test_every_kernel_source_is_built():
-    """Each csrc/*.cu is one library in stencil.KERNELS, and each launch
-    function named there is exported by its source."""
+    """Each csrc/*.cu is one library: a stencil's in stencil.KERNELS, or
+    graph_cond.cu, the serving graphs' conditional node (ops/graph.py);
+    each C function named there is exported by its source."""
+    from gridpp_tpu_torch.ops import graph
     csrc = os.path.join(os.path.dirname(os.path.dirname(stencil.__file__)),
                         "csrc")
     sources = sorted(f[:-3] for f in os.listdir(csrc) if f.endswith(".cu"))
-    assert sources == sorted(stencil.KERNELS)
-    for name, fn in stencil.KERNELS.items():
+    assert sources == sorted(list(stencil.KERNELS) + ["graph_cond"])
+    exported = [(name, fn) for name, fn in stencil.KERNELS.items()] + [
+        ("graph_cond", fn) for fn in graph.FUNCTIONS]
+    for name, fn in exported:
         with open(os.path.join(csrc, f"{name}.cu")) as f:
             assert f"int {fn}(" in f.read()
     with pytest.raises(ValueError, match="no kernel source"):

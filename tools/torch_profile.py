@@ -6,8 +6,10 @@
 
 The benchmark configuration (bench.py:57-69: Barnes 10 km, max_points=10,
 ratios 0.1, seed 0). --path pipeline (the default) builds Pipeline
-smoothed with --statistic at --halfwidth (default 7) and profiles its fast,
-general and resolve paths; --path ensi builds EnsiPipeline on a
+smoothed with --statistic at --halfwidth (default 7) and profiles its fast
+(pratios None, the static ratios), general and resolve paths (the ratios
+as a tensor; general and fast are captured CUDA graphs after the warm
+cycle); --path ensi builds EnsiPipeline on a
 normal(280, 5) ensemble of 10 members, psigmas 1.5, smoothed at
 --halfwidth (default 0, bench.py:160-167), and profiles its fast
 (all-valid) and general cycles; --path ebesc|ebe|utem builds that
@@ -106,8 +108,11 @@ def main():
         print(f"host set-up {time.perf_counter() - t0:.3f} s")
         bg = torch.as_tensor(background, device=dev)
         for path in ("fast", "general", "resolve"):
+            # fast on the static ratios as pratios=None: a tensor pratios
+            # is copied down to be compared with them (a host wait)
+            pr = None if path == "fast" else rat
             profile(path, lambda i: pipe.run_device(
-                bg, obs[i], rat, assume_valid=True, path=path),
+                bg, obs[i], pr, assume_valid=True, path=path),
                 args.cycles, args.top)
         return
 
