@@ -108,6 +108,20 @@ for _name, _obj in list(globals().items()):
         globals()[_name] = _pin_host(_obj)
 del _name, _obj
 
+# The span recorder (gridpp_tpu_torch.tracing), which the pipelines load, is
+# the port's own module and not one of gridpp_tpu's names: it is left out of
+# the package's namespace and found by __getattr__.
+import sys as _sys
+
+del tracing
+
+
+def __getattr__(name):
+    if name == "tracing":
+        return _sys.modules[__name__ + ".tracing"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 # SWIG-style static-method aliases, as in gridpp's bindings
 KDTree_calc_distance = KDTree.calc_distance
 KDTree_calc_distance_fast = KDTree.calc_distance_fast

@@ -42,6 +42,7 @@ from ..ops.neighbourhood import neighbourhood
 from ..ops.oi import oi_block_from_candidates
 from ..ops.oi_ensi import (_s_cap, _shortlist_sweep, _table,
                            obs_anomalies)
+from ..tracing import count, span
 from .oi import _origin, _resolved_fields
 
 __all__ = ["Pipeline", "EnsiPipeline", "MultiEnsiPipeline"]
@@ -102,15 +103,26 @@ def _serve_stream(pipe, run_one, cycles, n_up=None):
 
 
 def _serve_plain(pipe, run_one, cycles, n_up):
-    prev = None
-    for args in cycles:
-        tensors, ok = pipe._upload(*args[:n_up])
-        out = run_one(tensors, ok, args)
+    prev = None     # (output, its cycle), not yet fetched
+
+    def fetch(out, i):
+        with span("gridpp.serve.fetch", i):
+            res = out.cpu().numpy()
+        count("serve.cycles")
+        return res
+
+    for i, args in enumerate(cycles):
+        with span("gridpp.serve.check", i):
+            host, ok = _host_f32(args[:n_up])
+        with span("gridpp.serve.stage", i):
+            tensors = [torch.as_tensor(a, device=pipe.device) for a in host]
+        with span("gridpp.cycle", i):
+            out = run_one(tensors, ok, args)
         if prev is not None:
-            yield prev.cpu().numpy()
-        prev = out
+            yield fetch(*prev)
+        prev = (out, i)
     if prev is not None:
-        yield prev.cpu().numpy()
+        yield fetch(*prev)
 
 
 def _pinned(buf, shape, dtype):
@@ -136,43 +148,53 @@ def _serve_card(device, streams, run_one, cycles, n_up):
     staged = [[], []]           # each set's pinned input buffers
     uploaded = [None, None]     # each set's last upload, as an event
     fetched = None              # the pinned output buffer
-    prev = None                 # (output, its compute's event), not yet down
+    prev = None                 # (output, its compute's event, its cycle),
+                                # not yet down
 
-    def download(out, done):
+    def download(out, done, i):
         nonlocal fetched
-        fetched = _pinned(fetched, out.shape, out.dtype)
-        with torch.cuda.stream(down):
-            down.wait_event(done)
-            fetched.copy_(out, non_blocking=True)
-            out.record_stream(down)
-            copied = down.record_event()
-        copied.synchronize()
-        return torch.empty(fetched.shape, dtype=fetched.dtype).copy_(
-            fetched).numpy()
+        with span("gridpp.serve.fetch", i):
+            fetched = _pinned(fetched, out.shape, out.dtype)
+            with torch.cuda.stream(down):
+                down.wait_event(done)
+                fetched.copy_(out, non_blocking=True)
+                out.record_stream(down)
+                copied = down.record_event()
+            with span("gridpp.serve.fetch.wait"):
+                copied.synchronize()
+            res = torch.empty(fetched.shape, dtype=fetched.dtype).copy_(
+                fetched).numpy()
+        count("serve.cycles")
+        return res
 
     for i, args in enumerate(cycles):
-        host, ok = _host_f32(args[:n_up])
+        with span("gridpp.serve.check", i):
+            host, ok = _host_f32(args[:n_up])
         s = i % 2
-        if uploaded[s] is not None:
-            uploaded[s].synchronize()
-        old = staged[s]
-        staged[s] = [_pinned(old[j] if j < len(old) else None, a.shape,
-                             torch.float32) for j, a in enumerate(host)]
-        with warnings.catch_warnings():
-            # a is only read: torch warns of a read-only array all the same
-            warnings.filterwarnings("ignore", "The given NumPy array is not "
-                                    "writable")
-            for buf, a in zip(staged[s], host):
-                buf.copy_(torch.from_numpy(a))
-        with torch.cuda.stream(up):
-            tensors = [buf.to(device, non_blocking=True)
-                       for buf in staged[s]]
-            uploaded[s] = up.record_event()
-        compute.wait_event(uploaded[s])
-        for t in tensors:
-            t.record_stream(compute)
-        out = run_one(tensors, ok, args)
-        done = compute.record_event()
+        with span("gridpp.serve.stage", i):
+            if uploaded[s] is not None:
+                with span("gridpp.serve.stage.wait"):
+                    uploaded[s].synchronize()
+            old = staged[s]
+            staged[s] = [_pinned(old[j] if j < len(old) else None, a.shape,
+                                 torch.float32) for j, a in enumerate(host)]
+            with warnings.catch_warnings():
+                # a is only read: torch warns of a read-only array all the
+                # same
+                warnings.filterwarnings("ignore", "The given NumPy array is "
+                                        "not writable")
+                for buf, a in zip(staged[s], host):
+                    buf.copy_(torch.from_numpy(a))
+            with torch.cuda.stream(up):
+                tensors = [buf.to(device, non_blocking=True)
+                           for buf in staged[s]]
+                uploaded[s] = up.record_event()
+            compute.wait_event(uploaded[s])
+            for t in tensors:
+                t.record_stream(compute)
+        with span("gridpp.cycle", i):
+            out = run_one(tensors, ok, args)
+            done = compute.record_event()
         if i == 0:
             # the call's other pinned buffers now, behind the first cycle's
             # compute, so that a call after a one-cycle warm-up finds them
@@ -181,7 +203,7 @@ def _serve_card(device, streams, run_one, cycles, n_up):
             fetched = _pinned(None, out.shape, out.dtype)
         if prev is not None:
             yield download(*prev)
-        prev = (out, done)
+        prev = (out, done, i)
     if prev is not None:
         yield download(*prev)
 
@@ -493,10 +515,11 @@ class Pipeline(_OnDevice):
         g = self._graphs.get(path)
         if g is not None:
             return g(*args)
-        g = graph.Graphed(self.device, self._pool)
-        first = g.warm(lambda: run(*args, branch=_run_body))
-        tiles = g.buffer(self._geom_dev["local_idx"].shape[:2])
-        g.capture(lambda *a: run(*a, branch=g.if_node, out=tiles), args)
+        with span("gridpp.cycle.capture"):
+            g = graph.Graphed(self.device, self._pool)
+            first = g.warm(lambda: run(*args, branch=_run_body))
+            tiles = g.buffer(self._geom_dev["local_idx"].shape[:2])
+            g.capture(lambda *a: run(*a, branch=g.if_node, out=tiles), args)
         self._graphs[path] = g
         return first
 
@@ -546,15 +569,28 @@ class Pipeline(_OnDevice):
         if pratios is None:
             return True
         if isinstance(pratios, torch.Tensor):
-            pratios = pratios.cpu().numpy()
+            with span("gridpp.cycle.sync"):
+                pratios = pratios.cpu().numpy()
+            count("host.sync")
         return np.array_equal(np.asarray(pratios, np.float32),
                               self._init_ratios)
 
     def _run(self, background, pobs, pratios):
         if self.tiled:
+            count("cycle.general")
             return self._cycle("general", self._run_guarded, background,
                                pobs, pratios)
+        count("cycle.flat")
         return self._run_flat(background, pobs, pratios)
+
+    def _all_finite(self, background, pobs) -> bool:
+        """Whether every value of both is finite: a host read of the
+        device's answer."""
+        with span("gridpp.cycle.sync"):
+            ok = bool(torch.isfinite(pobs).all()
+                      & torch.isfinite(background).all())
+        count("host.sync")
+        return ok
 
     def run_device(self, background, pobs, pratios=None,
                    assume_valid=False, path="auto"):
@@ -580,13 +616,14 @@ class Pipeline(_OnDevice):
         if path in ("general", "resolve"):
             pratios = self._ratios(pratios)
             if path == "resolve" and self.tiled:
+                count("cycle.resolve")
                 return self._run_resolve(background, pobs, pratios)
             return self._run(background, pobs, pratios)
         if path == "fast" and self._static_w is None:
             raise ValueError("Pipeline was built without static ratios")
         if self._fast_eligible(pratios):
-            if assume_valid or bool(torch.isfinite(pobs).all()
-                                    & torch.isfinite(background).all()):
+            if assume_valid or self._all_finite(background, pobs):
+                count("cycle.fast")
                 return self._cycle("fast", self._run_fast, background, pobs)
         return self._run(background, pobs, self._ratios(pratios))
 
@@ -697,6 +734,7 @@ class EnsiPipeline(_EnsembleBase):
         self._check(pobs, "pobs")
         self._check(psigmas, "psigmas")
         e = background.shape[2]
+        count("cycle.ensi_prefix" if assume_valid else "cycle.ensi")
         # contiguous rows: torch's CPU reductions over E vectorise a strided
         # layout by shape, and a row's result must not depend on the block
         flat = self._smooth(background).reshape(self._n, e).contiguous()
@@ -777,6 +815,7 @@ class MultiEnsiPipeline(_EnsembleBase):
         self._check(pobs, "pobs")
         self._check(pratios, "pratios")
         e = background.shape[2]
+        count("cycle.multi")
         bg = background.reshape(self._n, e).contiguous()  # see EnsiPipeline
         bgc = None
         if self.variant != "ebesc":

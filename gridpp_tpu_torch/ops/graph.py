@@ -22,7 +22,8 @@ its capture counted on the wrappers (ops/stencil.py's `launches` and
 `wide`, and `begin_if.launches`, the conditional's setter kernel) and adds
 them at each replay. A capture launches nothing, so its own counts are
 taken back. A capture that fails raises; nothing falls back to an eager
-cycle.
+cycle. Captures and replays are counted in the tracing session
+(gridpp_tpu_torch.tracing: `graph.capture`, `graph.replay`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import weakref
 import torch
 
 from .._build import build_shared
+from ..tracing import count
 from . import stencil
 
 __all__ = ["Graphed", "begin_if", "build_conditional", "FUNCTIONS"]
@@ -183,6 +185,7 @@ class Graphed:
                            if n != before[k]}
                 _add(counted, -1)
         self.launches = counted
+        count("graph.capture")
 
     def if_node(self, pred, body):
         """During capture: body()'s work as an IF node that runs at a
@@ -215,6 +218,7 @@ class Graphed:
                 buf.copy_(a, non_blocking=True)
             self.graph.replay()
             _add(self.launches, 1)
+            count("graph.replay")
             return self.out.clone()
 
     def close(self):

@@ -22,6 +22,9 @@ regression (ROADMAP F9). A tiled Pipeline's captured cycles replay with no
 host synchronisation (set_sync_debug_mode "error"), and at 2000 x 2000
 with 10,000 obs its general graph equals the re-solve bit for bit on every
 cycle of a validity/ratios sequence, rebuilding exactly where they change.
+Under a profiler session the serving stream records gridpp_tpu_torch.
+tracing's spans and counts on the card, its waits and the graph capture
+included.
 
 This file imports no jax, so it also runs on a machine with the card and
 no JAX installed:
@@ -649,6 +652,65 @@ def test_serve_stream_yield_outlives_later_cycles(dev, kind):
     assert not np.shares_memory(first, second)
     assert not np.shares_memory(second, third)
     assert len(list(stream)) == 1
+
+
+def _traced(fn, cuda=False):
+    """fn() under a profiler session (host records, and the card's with
+    cuda), after a record made with the profiler off so that the tracing
+    session is a new one; returns (profiler, session)."""
+    from torch.profiler import ProfilerActivity, profile
+    from gridpp_tpu_torch import tracing
+    tracing.count("serve.cycles")   # off: records nothing
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof, tracing.session()
+
+
+def test_serve_stream_spans_on_card(dev):
+    """gridpp_tpu_torch.tracing on the card. A fresh Pipeline's 4 all-valid
+    cycles: the first captures the fast graph (gridpp.cycle.capture under
+    its gridpp.cycle), the others replay it; cycles 2 and 3 wait for the
+    upload from their staging set's last use, every fetch for its
+    download. Under a card trace the spans' device-timeline copies are
+    user annotations, not device work. Cycles with a third of the obs
+    missing take the general path after one host sync each."""
+    pipe, cycles = _streamed_pipe("pipeline", dev, _bench_cut())
+    _, s = _traced(lambda: list(pipe.serve_stream(cycles)))
+    assert s.counts == {"serve.cycles": 4, "cycle.fast": 4,
+                        "graph.capture": 1, "graph.replay": 3}
+    got = sorted((n, p, c) for n, p, c, _, _ in s.spans)
+    want = sorted(
+        [(n, None, c) for c in range(4) for n in (
+            "gridpp.serve.check", "gridpp.serve.stage", "gridpp.cycle",
+            "gridpp.serve.fetch")]
+        + [("gridpp.serve.fetch.wait", "gridpp.serve.fetch", c)
+           for c in range(4)]
+        + [("gridpp.serve.stage.wait", "gridpp.serve.stage", c)
+           for c in (2, 3)]
+        + [("gridpp.cycle.capture", "gridpp.cycle", 0)])
+    assert got == want
+
+    prof, s = _traced(lambda: list(pipe.serve_stream(cycles)), cuda=True)
+    assert s.counts == {"serve.cycles": 4, "cycle.fast": 4,
+                        "graph.replay": 4}
+    ours = [e for e in prof.events() if e.name.startswith("gridpp.")]
+    assert {e.name for e in ours} >= {n for n, *_ in s.spans}
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in ours)
+    assert all(e.is_user_annotation for e in ours)
+
+    gaps = [(bg, po.copy()) for bg, po in cycles]
+    for _, po in gaps:
+        po[::3] = np.nan
+    _, s = _traced(lambda: list(pipe.serve_stream(gaps)))
+    assert s.counts == {"serve.cycles": 4, "cycle.general": 4,
+                        "host.sync": 4, "graph.capture": 1,
+                        "graph.replay": 3}
+    assert sorted((p, c) for n, p, c, _, _ in s.spans
+                  if n == "gridpp.cycle.sync") == [
+        ("gridpp.cycle", c) for c in range(4)]
 
 
 def _graph_cycles(bg, pobs, ratios, dev):
