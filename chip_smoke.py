@@ -90,7 +90,10 @@ Run from the root of a checkout. In order it:
    Mean h=7: 5 all-valid (fast) cycles and 5 general cycles on the same
    inputs, equal bit for bit, then a general cycle with a third of the obs
    missing; finite outputs, no condition failures, exactly one K5 launch
-   per smoothed cycle. Then EnsiPipeline smoothed with Std h=7 (obs of its
+   per smoothed cycle and one launch of the EnSI kernel
+   (csrc/ensi_transform.cu, `ensi_update_cuda.launches`) per block of
+   rows, 4 a cycle at the default block of 2^20. Then EnsiPipeline
+   smoothed with Std h=7 (obs of its
    smoothed members' mean): 3 cycles, finite, no condition failures,
    exactly one K3 launch on the (E, Y, X) member planes per cycle. Then
    MultiEnsiPipeline ebesc, ebe and utem, 5
@@ -225,9 +228,12 @@ Run from the root of a checkout. In order it:
 15. the roofline (gridpp_tpu_torch.tools.roofline at scale 1, as `python
    -m gridpp_tpu_torch.tools.roofline` runs it): tools/roofline.py's eight
    rows (K1 Mean and K2 Max at 2048 x 2048 h=7, K4 at T=11, the plain
-   versions of K1 and K4, the EnSI update at B=16384, E=10, S=10, the
-   dense OI block at B=16384, P=4096, S=10, the tiled re-solve at 512 x
-   512 with 4096 obs), then K1-K5 at the main path's sizes (2000 x 2000,
+   versions of K1 and K4, the EnSI update's kernel at B=16384, E=10,
+   S=10, the dense OI block at B=16384, P=4096, S=10, the tiled re-solve
+   at 512 x 512 with 4096 obs), the EnSI update's plain chain beside its
+   kernel at B=16384 and both at the ensemble cell's B=2^20 (10,000 obs;
+   bound: the FMAs the kernel issues), then K1-K5 at the main path's sizes
+   (2000 x 2000,
    h=7, T=11, 10 members) and their wide route at h=100; each row held to
    its plain version, timed warm and cold, beside its bound and its
    library call (K1, K2, K5); prints the table; checks every row's times
@@ -735,11 +741,13 @@ def ensemble_phase(gt, stencil, dev, grid, points, pback, obs, gap, ratios):
               f"{time.perf_counter() - t0:.3f} s", flush=True)
         return pipe
 
+    from gridpp_tpu_torch.ops.oi_ensi import ensi_update_cuda
     k5 = 0
     for h in (0, 7):
         pipe = build(gt.EnsiPipeline, halfwidth=h,
                      statistic=gt.Statistic.Mean)
         stencil.neighbourhood_members_cuda.launches = 0
+        ensi_update_cuda.launches = 0
         fast = [timed(lambda: pipe.run_device(bgs[i], obs[i], psig,
                                               assume_valid=True))
                 for i in range(CYCLES)]
@@ -750,6 +758,10 @@ def ensemble_phase(gt, stencil, dev, grid, points, pback, obs, gap, ratios):
         n_cycles = 2 * CYCLES + 1
         check(launches == (n_cycles if h else 0),
               f"EnSI h={h}: {launches} K5 launches in {n_cycles} cycles")
+        blocks = -(-n * n // pipe.block)
+        check(ensi_update_cuda.launches == n_cycles * blocks,
+              f"EnSI h={h}: {ensi_update_cuda.launches} EnSI kernel "
+              f"launches in {n_cycles} cycles of {blocks} blocks")
         for i in range(CYCLES):
             check(torch.equal(fast[i][0][0], general[i][0][0]),
                   f"EnSI h={h} cycle {i}: fast == general bit for bit")
@@ -2913,7 +2925,8 @@ def main():
     sources = list(stencil.KERNELS) + ["graph_cond"]
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(timed_build, sources)))
-    print(f"  K1-K5, the wide route and the graph conditional: "
+    print(f"  K1-K5, the wide route, the EnSI transform and the graph "
+          "conditional: "
           f"{len(builds)} nvcc in parallel, "
           f"{time.perf_counter() - t0:.3f} s in all", flush=True)
     for name, (lib, secs) in builds.items():

@@ -16,15 +16,27 @@ Three sweeps, plain functions on tensors: `ensi_kernel` (host-fed
 candidates, the structure evaluated here), `ensi_shortlist_sweep` (the
 canonical shortlist re-selected with this call's obs validity) and
 `ensi_dense_sweep` (rho against every observation).
+
+The sweeps' per-gridpoint update is one hand-written kernel on the card,
+csrc/ensi_transform.cu (`ensi_update_cuda`), wherever `kernel_takes` the
+block by its shapes: f32 on a CUDA device with E and S at most 32. Beside
+it sits its plain version, `ensi_update_plain` (the chain of batched
+products above), which the CPU and every other shape run. `ensi_kernel`
+and the ensi_multi family keep the chain.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..tracing import count
 from .oi import _blocks, _select_top
+from .stencil import _launcher
 
 __all__ = ["obs_anomalies", "ensi_kernel", "ensi_shortlist_sweep",
-           "ensi_dense_sweep"]
+           "ensi_dense_sweep", "ensi_update_cuda", "ensi_update_plain",
+           "kernel_takes", "KERNEL_MAX_E", "KERNEL_MAX_S"]
 
 # Minimax-optimal odd-polynomial schedule for the coupled Newton-Schulz
 # inverse-sqrt iteration (computed offline via per-step LP on the current
@@ -202,6 +214,100 @@ def _ensi_update(sel_valid, l_rho, l_obs, l_sig, l_y, l_yhat, background,
                    l_yhat, l_y, cond_ok, allow_extrapolation)
 
 
+def ensi_update_plain(g, rho, valid, tab, background,
+                      allow_extrapolation: bool):
+    """The kernel's function in plain PyTorch: the block's rows of the
+    packed per-obs table tab (P, 3 + E) gathered by g (B, S), then
+    `_ensi_update`. rho is read on valid slots alone. Returns (analysis
+    (B, E), cond_bad (B,))."""
+    f = tab[g]  # (B, S, 3 + E)
+    return _ensi_update(valid, rho, f[:, :, 0], f[:, :, 1], f[:, :, 3:],
+                        f[:, :, 2], background, allow_extrapolation)
+
+
+# the members and selected obs a row that csrc/ensi_transform.cu takes
+KERNEL_MAX_E = KERNEL_MAX_S = 32
+# the Newton-Schulz schedule as the kernel reads it: (a, b, c) a step
+_NS_FLAT = (ctypes.c_float * (3 * len(_NS_COEFFS)))(
+    *(v for step in _NS_COEFFS for v in step))
+
+
+def kernel_takes(device, dtype, e: int, s: int) -> bool:
+    """Whether a block of E members and S selected obs goes through the
+    kernel: f32 on a CUDA device, 1 <= E <= KERNEL_MAX_E and 1 <= S <=
+    KERNEL_MAX_S. Chosen by shape; the chain takes every other block."""
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and 1 <= e <= KERNEL_MAX_E and 1 <= s <= KERNEL_MAX_S)
+
+
+def _check_kernel_args(g, rho, valid, tab, background, out, cond_bad):
+    if g.dtype != torch.int64:
+        raise TypeError(f"g must be int64, got {g.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid must be bool, got {valid.dtype}")
+    for name, t in (("rho", rho), ("tab", tab), ("background", background),
+                    ("out", out)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if cond_bad is not None and cond_bad.dtype != torch.bool:
+        raise TypeError(f"cond_bad must be bool, got {cond_bad.dtype}")
+    if g.dim() != 2 or background.dim() != 2 or tab.dim() != 2:
+        raise ValueError("expected g (B, S), background (B, E) and tab "
+                         "(P, 3 + E)")
+    b, s = g.shape
+    e = background.shape[1]
+    shapes = (("rho", rho, (b, s)), ("valid", valid, (b, s)),
+              ("background", background, (b, e)),
+              ("tab", tab, (tab.shape[0], 3 + e)), ("out", out, (b, e)),
+              ("cond_bad", cond_bad, (b,)))
+    for name, t, want in shapes:
+        if t is not None and tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+    if not (1 <= e <= KERNEL_MAX_E and 1 <= s <= KERNEL_MAX_S):
+        raise ValueError(f"the kernel takes 1 to {KERNEL_MAX_E} members and "
+                         f"1 to {KERNEL_MAX_S} selected obs, got E={e}, "
+                         f"S={s}")
+    tensors = [t for t in (g, rho, valid, tab, background, out, cond_bad)
+               if t is not None]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ensi_update_cuda needs contiguous tensors")
+    if not all(t.is_cuda and t.device == background.device
+               for t in tensors):
+        raise ValueError("ensi_update_cuda needs CUDA tensors on one device")
+
+
+def ensi_update_cuda(g, rho, valid, tab, background,
+                     allow_extrapolation: bool, out=None, cond_bad=None):
+    """`ensi_update_plain` in one launch of csrc/ensi_transform.cu, on
+    contiguous CUDA tensors: g (B, S) int64, rho (B, S) f32, valid (B, S)
+    bool, tab (P, 3 + E) f32, background (B, E) f32, with 1 <= E, S <= 32.
+    out (B, E) f32 and cond_bad (B,) bool, when given, are written in
+    place. Returns (analysis, cond_bad). Counts its calls in
+    `ensi_update_cuda.launches` and in the tracing session's
+    `kernel.ensi_update`."""
+    _check_kernel_args(g, rho, valid, tab, background, out, cond_bad)
+    dev = background.device
+    if out is None:
+        out = torch.empty_like(background)
+    if cond_bad is None:
+        cond_bad = torch.empty(g.shape[0], dtype=torch.bool, device=dev)
+    err = _launcher("ensi_transform")(
+        g.data_ptr(), rho.data_ptr(), valid.data_ptr(), tab.data_ptr(),
+        background.data_ptr(), out.data_ptr(), cond_bad.data_ptr(),
+        g.shape[0], tab.shape[0], g.shape[1], background.shape[1],
+        int(bool(allow_extrapolation)), _NS_FLAT, len(_NS_COEFFS),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ensi_transform kernel launch failed: error "
+                           f"{err}")
+    ensi_update_cuda.launches += 1
+    count("kernel.ensi_update")
+    return out, cond_bad
+
+
+ensi_update_cuda.launches = 0
+
+
 def _s_cap(max_points: int, k: int) -> int:
     return min(max_points, k) if max_points > 0 else k
 
@@ -221,18 +327,27 @@ def _sweep(background, tab, select, block: int, allow_extrapolation: bool):
     """EnSI over the rows of background (N, E), `block` rows at a time.
 
     select(rows) gives the rows' selection (sel_valid, l_rho, obs index
-    g), each (B, S); tab: (P, 3 + E) packed per-obs table [obs, sigma,
-    y_hat, y_anom...], one gather per block for all its columns. Returns
-    (analysis (N, E), cond_bad (N,))."""
-    n = background.shape[0]
-    out = torch.empty_like(background)
-    cond_bad = torch.empty(n, dtype=torch.bool, device=background.device)
+    g), each (B, S), l_rho read on valid slots alone; tab: (P, 3 + E)
+    packed per-obs table [obs, sigma, y_hat, y_anom...]. A block that
+    `kernel_takes` is one launch of the kernel, which gathers the table
+    rows itself and writes into the result; any other block runs the
+    plain version, one gather per block for all the table's columns.
+    Returns (analysis (N, E), cond_bad (N,))."""
+    n, e = background.shape
+    dev = background.device
+    out = torch.empty((n, e), dtype=background.dtype, device=dev)
+    cond_bad = torch.empty(n, dtype=torch.bool, device=dev)
     for rows in _blocks(n, block):
         sel_valid, l_rho, g = select(rows)
-        f = tab[g]  # (B, S, 3 + E)
-        out[rows], cond_bad[rows] = _ensi_update(
-            sel_valid, l_rho, f[:, :, 0], f[:, :, 1], f[:, :, 3:],
-            f[:, :, 2], background[rows], allow_extrapolation)
+        if kernel_takes(dev, background.dtype, e, g.shape[1]):
+            ensi_update_cuda(g.contiguous(), l_rho.contiguous(),
+                             sel_valid.contiguous(), tab,
+                             background[rows].contiguous(),
+                             allow_extrapolation, out[rows], cond_bad[rows])
+        else:
+            out[rows], cond_bad[rows] = ensi_update_plain(
+                g, l_rho, sel_valid, tab, background[rows],
+                allow_extrapolation)
     return out, cond_bad
 
 
@@ -246,9 +361,8 @@ def _shortlist_sweep(cand, background, tab, obs_ok, s_cap: int, block: int,
     sel, rho, valid = cand
 
     def select(rows):
-        if prefix:
-            return (valid[rows], torch.where(valid[rows], rho[rows], 0.0),
-                    sel[rows])
+        if prefix:  # views: the update reads rho on valid slots alone
+            return valid[rows], rho[rows], sel[rows]
         return _reselect(sel[rows], rho[rows], valid[rows], obs_ok, s_cap)
 
     return _sweep(background, tab, select, block, allow_extrapolation)

@@ -16,6 +16,10 @@ in parallel, as chip_smoke.py runs them) and bound with ctypes:
      replaces ::_member_mean_kernel and ::_member_minmax_kernel
   wide route of K1-K3 and K5          csrc/neighbourhood_wide.cu
 
+The same registry (`KERNELS`, `build_kernel`) builds and binds the EnSI
+transform's kernel, csrc/ensi_transform.cu, whose wrapper and plain version
+live with the transform in ops/oi_ensi.py (`ensi_update_cuda`).
+
 `stencil_plan` (Python, so that the CPU tests reach it) picks each call's
 route from the shapes and halfwidths: "fused", the kernel's own one-launch
 kernel, where its shared-memory tile fits a block and the halfwidths are at
@@ -75,7 +79,8 @@ KERNELS = {"neighbourhood_mean": "nbm_launch",
            "neighbourhood_minmax": "nbx_launch",
            "neighbourhood_var": "nbv_launch",
            "neighbourhood_members": "nbk_launch",
-           "neighbourhood_wide": "nbw_launch"}
+           "neighbourhood_wide": "nbw_launch",
+           "ensi_transform": "ens_launch"}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -87,6 +92,9 @@ _ARGTYPES = {"nbm_launch": _STRIP_ARGS, "nbx_launch": _STRIP_ARGS,
              "nbv_launch": _STRIP_ARGS,
              "nbk_launch": [_c_p, _c_p] + [_c_i] * 8 + [_c_i, _c_p],
              "nbw_launch": [_c_p] * 6 + [_c_i, _c_p] + [_c_i] * 7
+             + [_c_i, _c_p],
+             "ens_launch": [_c_p] * 7 + [ctypes.c_longlong] * 2
+             + [_c_i] * 3 + [ctypes.POINTER(ctypes.c_float), _c_i]
              + [_c_i, _c_p]}
 _libs: dict = {}
 

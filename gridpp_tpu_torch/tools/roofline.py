@@ -74,7 +74,9 @@ WIDE_RUN = 16
 K1_BAR = (1e-5, 1e-4)            # tests/test_pallas_stencil.py:36-38
 K3_BAR = (2e-5, 2e-3)            # tests/test_pallas_stencil.py:220
 OI_BAR = (0.0, 1e-3)             # card vs CPU, Pipeline and ebe/ebesc
-ENSI_BAR = (0.0, 2e-3)           # card vs CPU, EnSI and utem
+ENSI_BAR = (0.0, 2e-3)           # EnSI: kernel vs chain, card vs CPU
+# the EnSI chain on the card is held to the CPU's up to this many rows
+PLAIN_CHECK_ROWS = 1 << 16
 # a library call against the kernel at a wide window: the library sums
 # each (2h+1)^2 window in one sequence of f32 adds
 WIDE_LIBRARY_BAR = (1e-4, 1e-4)
@@ -100,8 +102,8 @@ PEAKS = (
 class Row(NamedTuple):
     """One row: `kind` is a kernel ("K1"-"K5") or an OI block ("ensi",
     "oi", "tiled"); `shape` its sizes (K1-K3 (Y, X) or (B, Y, X), K4 (Y,
-    X), K5 (Y, X, E); ensi (B, S, E); oi (B, P, S); tiled (Y, X, P, S, K,
-    T, TB, C, F), see `count`); h the clipped halfwidth, t the thresholds,
+    X), K5 (Y, X, E); ensi (B, S, E, P); oi (B, P, S); tiled (Y, X, P, S,
+    K, T, TB, C, F), see `count`); h the clipped halfwidth, t the thresholds,
     stat the statistic; plain: the row runs the port's plain version;
     uniform: a K1/K2 row's field is uniform [0, 1) (the reference's rows),
     not the benchmark background normal(280, 5)."""
@@ -212,12 +214,15 @@ def parts(row: Row) -> Work:
       compares and adds, 4 a packed word of running counts (qf_words, at
       the lane width the window's cells need), 3 t for each threshold's
       prefix difference, test and interpolation.
-    - ensi (B, S, E): ops.oi_ensi._ensi_update with allow_extrapolation,
-      inputs sel_valid (bool), rho, obs, sigma, y_hat (B, S), Y (B, S,
-      E), the background (B, E); output (B, E). Products: Pinv = C Y 2
-      B E^2 S, the Newton-Schulz iteration's E x E products (`_ns_steps`:
-      34 for ten steps) 2 B E^3 each, C innov 2 B E S, six E x E
-      matrix-vector products 2 B E^2 each. Elementwise: 5 B S (Rinv,
+    - ensi (B, S, E, P): the EnSI update of B rows with
+      allow_extrapolation (ops.oi_ensi.ensi_update_cuda, the kernel, or
+      its plain version ensi_update_plain), inputs the background (B, E),
+      validity (B, S, bool), rho (B, S), the obs index g (B, S, int64) and
+      the packed table of P obs (P, 3 + E); output (B, E). Products, the
+      real FMA count the kernel issues: Pinv = C Y 2 B E^2 S, the
+      Newton-Schulz iteration's E x E products (`_ns_steps`: 34 for ten
+      steps) 2 B E^3 each, C innov 2 B E S, six E x E matrix-vector
+      products 2 B E^2 each. Elementwise: 5 B S (Rinv,
       innovations), B E S (C), (3 + NS passes + 2) B E^2 (the
       symmetrised Pinv and its ridge, the iteration, isfinite of Pinv and
       z), (1 + n) E^2, 11 B E, 11 B; reductions 3 B E^2 + 4 B E + B S.
@@ -260,13 +265,14 @@ def parts(row: Row) -> Work:
         return Work(8 * cells + 4 * t, 0,
                     cells * (2 * (t + 1) + 4 * words + 3 * t), 0, "int32")
     if kind == "ensi":
-        b, s, e = shape
+        b, s, e, p = shape
         products, passes, n = _ns_steps()
         mm = 2 * b * (e * e * s + products * e ** 3 + e * s + 6 * e * e)
         ew = (5 * b * s + b * e * s + (3 + passes + 2) * b * e * e
               + (1 + n) * e * e + 11 * b * e + 11 * b)
         red = 3 * b * e * e + 4 * b * e + b * s
-        nbytes = 4 * (b * s * e + 4 * b * s + b * e) + b * s + 4 * b * e
+        nbytes = (8 * b * e + b * s + 4 * b * s + 8 * b * s
+                  + 4 * p * (3 + e))
         return Work(nbytes, mm, ew, red, "f32")
     if kind == "oi":
         b, p, s = shape
@@ -292,8 +298,11 @@ def parts(row: Row) -> Work:
 def sources(row: Row) -> set:
     """The csrc sources (ops.stencil.KERNELS keys) whose kernels a card row
     launches: a kernel row's, by the route stencil_plan picks from its
-    shapes; none for a plain or OI row."""
+    shapes; the EnSI transform's for an EnSI update row; none for a plain
+    or other OI row."""
     from ..ops import stencil
+    if row.kind == "ensi" and not row.plain:
+        return {"ensi_transform"}
     if row.plain or row.kind not in ("K1", "K2", "K3", "K4", "K5"):
         return set()
     plan = stencil.stencil_plan(row.kind, row.shape, row.h, row.h,
@@ -480,16 +489,19 @@ def rows(scale: float = 1.0) -> list:
     """The rows at `scale` (each side, batch and obs count scaled; E, S,
     T and the halfwidths kept, halfwidths clipped to the grid): first the
     reference tool's eight (its [xla] rows as [plain] rows, the port's
-    plain versions), then one for each kernel and the wide route at the
-    main path's sizes (2000^2, h=7, T=11, 10 members; the wide route at
-    h=100). The tiled row's shape is completed by `make`, from its
-    Pipeline's tables."""
+    plain versions; its EnSI update row the EnSI kernel), then the EnSI
+    update's plain chain beside it, the kernel and the chain at the
+    ensemble cell's block of 2^20 rows (10,000 obs), then one row for
+    each stencil kernel and the wide route at the main path's sizes
+    (2000^2, h=7, T=11, 10 members; the wide route at h=100). The tiled
+    row's shape is completed by `make`, from its Pipeline's tables."""
     from ..constants import Statistic
     mean, mx, std = int(Statistic.Mean), int(Statistic.Max), \
         int(Statistic.Std)
     n2k, n2 = _side(2048, scale), _side(2000, scale)
     b, p = _side(16384, scale), _side(4096, scale)
     n_t = _side(512, scale)
+    b_cell, p_ens = _side(1 << 20, scale), _side(10000, scale)
 
     def clip(h, n):
         return min(h, n - 1)
@@ -505,10 +517,16 @@ def rows(scale: float = 1.0) -> list:
             (n2k, n2k), h2k, stat=mean, plain=True, uniform=True),
         Row(f"quantile_fast {n2k}^2 T=11 [plain]", "K4", (n2k, n2k), h2k,
             11, plain=True),
-        Row(f"EnSI update B={b} E=10 S=10", "ensi", (b, 10, 10)),
+        Row(f"EnSI update B={b} E=10 S=10", "ensi", (b, 10, 10, p_ens)),
         Row(f"OI dense block B={b} P={p} S=10", "oi", (b, p, 10)),
         Row(f"OI tiled general sweep {n_t}^2 {p} obs S=10", "tiled",
             (n_t, n_t, p, 10)),
+        Row(f"EnSI update B={b} E=10 S=10 [plain]", "ensi",
+            (b, 10, 10, p_ens), plain=True),
+        Row(f"EnSI update B={b_cell} E=10 S=10", "ensi",
+            (b_cell, 10, 10, p_ens)),
+        Row(f"EnSI update B={b_cell} E=10 S=10 [plain]", "ensi",
+            (b_cell, 10, 10, p_ens), plain=True),
     ]
     for h, tag in ((h7, ""), (h100, "wide ")):
         out += [
@@ -550,7 +568,7 @@ class Made(NamedTuple):
     """A row made on a device: fn(*args) the timed call; plain(*args) the
     function it is held to (on `check_device`, None: not checked) at
     `bar`; library(*args) one PyTorch call of the same function or None;
-    wrapper: the stencil wrapper whose launches the row counts (None: not
+    wrapper: the kernel wrapper whose launches the row counts (None: not
     a kernel row)."""
     row: Row
     fn: object
@@ -631,21 +649,32 @@ def make(row: Row, device, rng) -> Made:
         return Made(row, lambda a, th: wrapper(a, q, h, h, th), (x, thr),
                     plain, None, device, wrapper=wrapper)
     if kind == "ensi":
-        from ..ops.oi_ensi import _ensi_update
-        b, s, e = row.shape
+        from ..ops.oi_ensi import ensi_update_cuda, ensi_update_plain
+        b, s, e, p = row.shape
+        tab = np.concatenate([rng.normal(280, 5, (p, 1)),
+                              np.full((p, 1), 1.5),
+                              rng.normal(280, 5, (p, 1)),
+                              rng.normal(0, 5, (p, e))], axis=1)
         args = (tensor(rng.normal(280, 5, (b, e)).astype(np.float32)),
                 torch.ones((b, s), dtype=torch.bool, device=device),
                 tensor(rng.uniform(0.1, 1, (b, s)).astype(np.float32)),
-                tensor(rng.normal(280, 5, (b, s)).astype(np.float32)),
-                tensor(np.full((b, s), 1.5, np.float32)),
-                tensor(rng.normal(0, 5, (b, s, e)).astype(np.float32)),
-                tensor(rng.normal(280, 5, (b, s)).astype(np.float32)))
+                tensor(rng.integers(0, p, (b, s))),
+                tensor(tab.astype(np.float32)))
 
-        def fn(bg, sel_valid, l_rho, l_obs, l_sig, l_y, l_yhat):
-            return _ensi_update(sel_valid, l_rho, l_obs, l_sig, l_y, l_yhat,
-                                bg, True)[0]
-        return Made(row, fn, args, fn if cuda else None, ENSI_BAR,
-                    torch.device("cpu") if cuda else None)
+        def plain(bg, valid, rho, g, tab):
+            return ensi_update_plain(g, rho, valid, tab, bg, True)[0]
+        if row.plain or not cuda:
+            # the chain on the card held to the CPU's, where that is quick
+            check = cuda and b <= PLAIN_CHECK_ROWS
+            return Made(row, plain, args, plain if check else None,
+                        ENSI_BAR, torch.device("cpu") if check else None)
+
+        def kernel(bg, valid, rho, g, tab):
+            return ensi_update_cuda(g, rho, valid, tab, bg, True)[0]
+        # held to the plain chain on the card: the CPU's would take
+        # seconds at the cell's block
+        return Made(row, kernel, args, plain, ENSI_BAR, device,
+                    wrapper=ensi_update_cuda)
     if kind == "oi":
         from ..api.oi import _origin, _resolved_fields
         from ..ops.oi import oi_block_dense
@@ -884,7 +913,8 @@ def main(argv=None) -> int:
               "versions on the CPU)", file=sys.stderr)
         return 2
     if device.type == "cuda":
-        # the EnSI transform's products run in full f32 (ops.oi_ensi._mm)
+        # the EnSI update's plain chain runs its products in full f32
+        # (ops.oi_ensi._mm)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     results = run(args.scale, device, args.trace)

@@ -8,7 +8,13 @@ K3 rtol 2e-5, atol 2e-3 (:220), on one plane and on EnSI's ten; K4 (the
 wide route's running and prefix counts) bit for bit, NaN positions
 included, ties (:70-85) and the lane-width boundaries too, within 1e-5 of
 it past 2^24 cells a window, and a window past its int32 guard raises.
-Every kernel's launch counter moves by one per launch. The pipelines on the card agree with
+Every kernel's launch counter moves by one per launch. The EnSI
+transform's kernel (csrc/ensi_transform.cu) is held to the plain chain on
+the CPU within 2e-3 (tests/test_torch_ensi.py) at 3 to 32 members and 1 to
+20 slots, with and without extrapolation, cond_bad equal, and within 1e-3
+K of float64 eigh (ROADMAP F6); EnsiPipeline's result does not depend on
+the block, and its serving stream launches it once a block and no cuBLAS
+product. The pipelines on the card agree with
 their CPU runs (the plain versions): Pipeline within 1e-3, EnsiPipeline
 and utem within 2e-3, ebe and ebesc within 1e-3; an EnSI cycle smoothed
 with Mean launches K5 once. The six OI API functions on their device route
@@ -39,6 +45,7 @@ torch = pytest.importorskip("torch")
 import gridpp_tpu_torch as gt  # noqa: E402
 from gridpp_tpu_torch.api.gradients import lr_bar  # noqa: E402
 from gridpp_tpu_torch.ops import neighbourhood as tops  # noqa: E402
+from gridpp_tpu_torch.ops import oi_ensi  # noqa: E402
 from gridpp_tpu_torch.ops import stencil  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -517,9 +524,10 @@ def _ens_problem(seed=9, n=64, n_obs=100, e=5):
 
 @pytest.mark.parametrize("halfwidth", [0, 7])
 def test_ensi_pipeline_on_card(dev, halfwidth):
-    """EnSI on the card: one K5 launch per smoothed cycle, the all-valid
-    fast path equal to the general path bit for bit, no condition
-    failures, and the card within 2e-3 of the CPU's plain versions."""
+    """EnSI on the card: one K5 launch per smoothed cycle and one EnSI
+    kernel launch per block, the all-valid fast path equal to the general
+    path bit for bit, no condition failures, and the card within 2e-3 of
+    the CPU's plain versions."""
     grid, pts, bg, _, pobs, _ = _ens_problem()
     kw = dict(halfwidth=halfwidth, statistic=gt.Mean, max_points=10)
     card = gt.EnsiPipeline(grid, pts, gt.BarnesStructure(30000.0),
@@ -532,10 +540,12 @@ def test_ensi_pipeline_on_card(dev, halfwidth):
     for po, fast in ((pobs, True), (gap, False)):
         args = [torch.as_tensor(a, device=dev) for a in (bg, po, psig)]
         before = stencil.neighbourhood_members_cuda.launches
+        ensi = oi_ensi.ensi_update_cuda.launches
         out, n_cond = card.run_device(*args, assume_valid=fast)
         torch.cuda.synchronize()
         assert stencil.neighbourhood_members_cuda.launches \
             == before + (halfwidth > 0)
+        assert oi_ensi.ensi_update_cuda.launches == ensi + 1
         assert n_cond.device == dev and int(n_cond) == 0
         assert bool(torch.isfinite(out).all())
         if fast:
@@ -547,6 +557,143 @@ def test_ensi_pipeline_on_card(dev, halfwidth):
     with pytest.raises(ValueError, match="runs on cuda"):
         card.run_device(torch.as_tensor(bg), torch.as_tensor(pobs),
                         torch.as_tensor(psig))
+
+
+# -- the EnSI transform's kernel (csrc/ensi_transform.cu) ---------------------
+OP_ATOL = 2e-3  # the EnSI update's bar, tests/test_torch_ensi.py
+
+
+def _ensi_block(seed, b, s, e, p=40):
+    """The kernel's inputs (g, rho, valid, tab, background) for b rows of
+    s slots and e members over a table of p obs, with what the guards
+    meet: about 30% of slots invalid, every 7th row without a valid obs,
+    NaN rho on invalid slots (read on valid slots alone), row 3's invalid
+    first slot on an obs whose anomalies are NaN (a non-finite Pinv: cond_
+    bad where the row has a valid slot), row 5's valid first slot on an
+    obs that is NaN (a non-finite analysis) and a NaN member in row 9."""
+    rng = np.random.default_rng(seed)
+    tab = np.empty((p, 3 + e), np.float32)
+    tab[:, 0] = rng.normal(281, 2, p)
+    tab[:, 1] = rng.uniform(0.5, 2, p)
+    tab[:, 2] = rng.normal(280, 1, p)
+    tab[:, 3:] = rng.normal(0, 2, (p, e))
+    tab[p - 1, 3:] = np.nan
+    tab[p - 2, 0] = np.nan
+    g = rng.integers(0, p - 2, (b, s))
+    valid = rng.random((b, s)) < 0.7
+    valid[::7] = False
+    g[3, 0], valid[3, 0], valid[3, 1:] = p - 1, False, True
+    g[5, 0], valid[5, 0] = p - 2, True
+    rho = rng.uniform(0.05, 1, (b, s)).astype(np.float32)
+    rho[~valid] = np.nan
+    bg = rng.normal(280, 5, (b, e)).astype(np.float32)
+    bg[9, 0] = np.nan
+    return [torch.as_tensor(a) for a in (g, rho, valid, tab, bg)]
+
+
+@pytest.mark.parametrize("allow", [True, False])
+@pytest.mark.parametrize("s", [1, 5, 10, 20])
+@pytest.mark.parametrize("e", [3, 5, 10, 16, 17, 32])
+def test_ensi_kernel_matches_plain_chain(dev, e, s, allow):
+    """The kernel on the card against the plain chain on the CPU: within
+    OP_ATOL, NaN in the same places, cond_bad equal; rows without a valid
+    obs, with a non-finite transform or analysis keep their background;
+    without extrapolation the clamp's count-stride quirk is the chain's."""
+    args = _ensi_block(100 * e + s, 300, s, e)
+    before = oi_ensi.ensi_update_cuda.launches
+    out, bad = oi_ensi.ensi_update_cuda(*(a.to(dev) for a in args), allow)
+    torch.cuda.synchronize()
+    assert oi_ensi.ensi_update_cuda.launches == before + 1
+    want, want_bad = oi_ensi.ensi_update_plain(*args, allow)
+    got, bad = out.cpu(), bad.cpu()
+    assert torch.equal(bad, want_bad)
+    assert bool(bad[3]) == (s > 1)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=OP_ATOL)
+    bg, valid = args[4], args[2]
+    kept = ~valid.any(dim=1) | bad
+    kept[5] = True
+    assert torch.equal(got[kept].nan_to_num(), bg[kept].nan_to_num())
+    assert torch.equal(got[9].nan_to_num(), bg[9].nan_to_num())
+
+
+def _ensi_float64(valid, rho, obs, sig, y, yhat, background):
+    """EnSI as oi_ensi.cpp:296-444 computes it, in float64 with eigh (as
+    tests/test_torch_ensi.py::_ensi_float64)."""
+    e = background.shape[1]
+    rinv = np.where(valid, rho / sig.astype(np.float64) ** 2, 0.0)
+    innov = np.where(valid, obs.astype(np.float64) - yhat, 0.0)
+    y = y.astype(np.float64)
+    lam, v = np.linalg.eigh(np.einsum("bse,bs,bsf->bef", y, rinv, y)
+                            + (e - 1) * np.eye(e))
+    w_mat = np.einsum("bij,bj,bkj->bik", v, np.sqrt((e - 1) / lam), v)
+    w = np.einsum("bij,bj,bkj,bk->bi", v, 1 / lam, v,
+                  np.einsum("bse,bs,bs->be", y, rinv, innov))
+    mean = background.astype(np.float64).mean(axis=1, keepdims=True)
+    x = background - mean
+    return mean + np.einsum("bke,bk->be", w_mat, x) \
+        + (x * w).sum(axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ensi_kernel_matches_float64_eigh(dev, seed):
+    """ROADMAP F6 on the card: test_ensi_update_matches_float64_eigh's
+    inputs (innovations ~10 K against the weights), each row's slots its
+    own rows of the table; the kernel within 1e-3 K of float64 eigh."""
+    rng = np.random.default_rng(seed)
+    b, s, e = 4000, 10, 10
+    valid = np.ones((b, s), bool)
+    rho = rng.uniform(0.3, 1, (b, s)).astype(np.float32)
+    obs = rng.normal(290, 5, (b, s)).astype(np.float32)
+    sig = np.full((b, s), 1.5, np.float32)
+    y = rng.normal(0, 5, (b, s, e)).astype(np.float32)
+    yhat = rng.normal(280, 1, (b, s)).astype(np.float32)
+    bg = rng.normal(280, 5, (b, e)).astype(np.float32)
+    exact = _ensi_float64(valid, rho, obs, sig, y, yhat, bg)
+    tab = np.concatenate([obs.reshape(-1, 1), sig.reshape(-1, 1),
+                          yhat.reshape(-1, 1), y.reshape(-1, e)], axis=1)
+    g = np.arange(b * s).reshape(b, s)
+    out, bad = oi_ensi.ensi_update_cuda(
+        *(torch.as_tensor(a, device=dev) for a in (g, rho, valid, tab, bg)),
+        True)
+    assert not bool(bad.any())
+    assert np.abs(out.cpu().numpy() - exact).max() < 1e-3
+
+
+@pytest.mark.parametrize("assume_valid", [True, False])
+def test_ensi_kernel_block_size_independent(dev, assume_valid):
+    """EnsiPipeline on the card gives the same bits whatever its block:
+    one kernel launch a block (1 at the default, 111 at 37 rows)."""
+    grid, pts, bg, _, pobs, _ = _ens_problem()
+    po = pobs.copy()
+    if not assume_valid:
+        po[::4] = np.nan
+    args = [torch.as_tensor(a, device=dev)
+            for a in (bg, po, np.full(pobs.size, 1.5, np.float32))]
+    outs = []
+    for block, launches in ((1 << 20, 1), (37, -(-bg.shape[0] ** 2 // 37))):
+        pipe = gt.EnsiPipeline(grid, pts, gt.BarnesStructure(30000.0),
+                               block=block, device=dev)
+        before = oi_ensi.ensi_update_cuda.launches
+        outs.append(pipe.run_device(*args, assume_valid=assume_valid))
+        assert oi_ensi.ensi_update_cuda.launches - before == launches
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert int(outs[0][1]) == int(outs[1][1]) == 0
+
+
+def test_ensi_kernel_rejects_what_it_cannot_take(dev):
+    """The wrapper raises on a CPU tensor among CUDA ones and past 32
+    members; the sweep sends E = 33 to the chain by its shape."""
+    args = [a.to(dev) for a in _ensi_block(0, 20, 4, 6)]
+    with pytest.raises(ValueError, match="CUDA"):
+        oi_ensi.ensi_update_cuda(args[0], args[1], args[2], args[3].cpu(),
+                                 args[4], True)
+    wide = [a.to(dev) for a in _ensi_block(1, 20, 4, 33)]
+    with pytest.raises(ValueError, match="members"):
+        oi_ensi.ensi_update_cuda(*wide, True)
+    assert not oi_ensi.kernel_takes(dev, torch.float32, 33, 4)
+    assert oi_ensi.kernel_takes(dev, torch.float32, 32, 32)
 
 
 @pytest.mark.parametrize("variant,tol", [("ebe", 1e-3), ("ebesc", 1e-3),
@@ -713,6 +860,28 @@ def test_serve_stream_spans_on_card(dev):
         ("gridpp.cycle", c) for c in range(4)]
 
 
+def test_ensi_serve_stream_counts_kernel_launches(dev):
+    """EnsiPipeline's serving stream on the card under a profiler session:
+    `kernel.ensi_update` counts one launch a block of each served cycle,
+    and the session's device records hold the EnSI kernel and no cuBLAS
+    product."""
+    grid, pts, _, pobs, ens, _ = _bench_cut()
+    k = pobs.size
+    pipe = gt.EnsiPipeline(grid, pts, gt.BarnesStructure(10000.0),
+                           max_points=10, block=1 << 14, device=dev)
+    cycles = [(ens + np.float32(i), pobs, np.full(k, 1.5, np.float32))
+              for i in range(3)]
+    list(pipe.serve_stream(cycles[:1]))
+    prof, s = _traced(lambda: list(pipe.serve_stream(cycles)), cuda=True)
+    blocks = -(-ens.shape[0] * ens.shape[1] // pipe.block)
+    assert s.counts["serve.cycles"] == 3
+    assert s.counts["kernel.ensi_update"] == 3 * blocks == 12
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("ensi_transform_kernel" in n for n in names)
+    assert not any("gemm" in n or "gemv" in n for n in names)
+
+
 def _graph_cycles(bg, pobs, ratios, dev):
     """The 8-cycle validity/ratios sequence of
     tests/test_torch_pipeline_graph.py on the card: cold; hit; hit; a
@@ -817,18 +986,34 @@ def test_graphed_general_sequence_at_full_size(dev):
 
 
 def test_ensemble_transform_refuses_tf32(dev):
-    grid, pts, bg, _, pobs, _ = _ens_problem(n=16, n_obs=20)
-    pipe = gt.EnsiPipeline(grid, pts, gt.BarnesStructure(30000.0),
-                           device=dev)
-    args = [torch.as_tensor(a, device=dev)
-            for a in (bg, pobs, np.full(pobs.size, 1.5, np.float32))]
+    """EnsiPipeline's transform is the EnSI kernel, which never reaches
+    cuBLAS: its result is the same with TF32 on and off. The chain that
+    keeps the batched products (ops.oi_ensi._mm) still refuses TF32:
+    utem's MultiEnsiPipeline, and EnSI past the kernel's 32 members."""
+    st = gt.BarnesStructure(30000.0)
+    grid, pts, bg, bgc, pobs, _ = _ens_problem(n=16, n_obs=20)
+    psig = np.full(pobs.size, 1.5, np.float32)
+    ratios = np.full(pobs.size, 0.1, np.float32)
+    pipe = gt.EnsiPipeline(grid, pts, st, device=dev)
+    utem = gt.MultiEnsiPipeline(grid, pts, st, variant="utem", device=dev)
+    _, _, bg33, _, pobs33, _ = _ens_problem(n=16, n_obs=20, e=33)
+    wide = gt.EnsiPipeline(grid, pts, st, device=dev)
+    args = [torch.as_tensor(a, device=dev) for a in (bg, pobs, psig)]
+    args_utem = [torch.as_tensor(a, device=dev)
+                 for a in (bg, pobs, ratios, bgc)]
+    args33 = [torch.as_tensor(a, device=dev) for a in (bg33, pobs33, psig)]
+    off = pipe.run_device(*args)[0]
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
+        assert torch.equal(pipe.run_device(*args)[0], off)
         with pytest.raises(RuntimeError, match="TF32"):
-            pipe.run_device(*args)
+            utem.run_device(*args_utem)
+        with pytest.raises(RuntimeError, match="TF32"):
+            wide.run_device(*args33)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    pipe.run_device(*args)
+    utem.run_device(*args_utem)
+    wide.run_device(*args33)
 
 
 def _api_problem(seed=13, n=40, n_obs=60, e=5, starved=False):

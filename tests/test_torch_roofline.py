@@ -96,8 +96,9 @@ def test_rows_launch_every_kernel_source():
     (Row("", "K4", (10, 12), 2, 11), (1004, 120 * (24 + 12 + 33), "int32")),
     (Row("", "K5", (10, 12, 3), 1, stat=int(gt.Mean)), (2880, 4320, "f32")),
     (Row("", "K5", (10, 12, 3), 1, stat=int(gt.Max)), (2880, 2160, "f32")),
-    # products 9328, elementwise 2356, reductions 134
-    (Row("", "ensi", (2, 3, 4)), (262, 11818, "f32")),
+    # products 9328, elementwise 2356, reductions 134; bytes: background
+    # and output 64, validity 6, rho 24, g 48, a table of 5 obs 140
+    (Row("", "ensi", (2, 3, 4, 5)), (282, 11818, "f32")),
     # the sort path (P <= 128), and the top-k path
     (Row("", "oi", (3, 5, 2)), (256, 1403, "f32")),
     (Row("", "oi", (2, 130, 1)), (4224, 12897, "f32")),
@@ -151,7 +152,7 @@ def _nbytes(a):
 
 
 @pytest.mark.parametrize("row", [
-    Row("", "ensi", (7, 3, 4)), Row("", "ensi", (5, 10, 10)),
+    Row("", "ensi", (7, 3, 4, 9)), Row("", "ensi", (5, 10, 10, 30)),
     Row("", "oi", (7, 200, 3)), Row("", "oi", (6, 50, 10)),
     Row("", "tiled", (10, 10, 81, 10)), Row("", "tiled", (33, 20, 50, 4))])
 def test_parts_are_the_codes_operations(row):
@@ -214,12 +215,14 @@ def test_oi_dense_block_matches_gridpp_tpu(b, p):
 
 def test_ensi_update_matches_gridpp_tpu():
     from gridpp_tpu.ops.oi_ensi import _ensi_update as j_update
-    made = roofline.make(Row("", "ensi", (300, 10, 10)), "cpu",
+    made = roofline.make(Row("", "ensi", (300, 10, 10, 500)), "cpu",
                          np.random.default_rng(7))
-    bg, sel_valid, rho, obs, sig, y, yhat = (a.numpy() for a in made.args)
+    bg, sel_valid, rho, g, tab = (a.numpy() for a in made.args)
+    f = tab[g]
     want, _ = j_update(None, jnp.asarray(sel_valid), jnp.asarray(rho),
-                       jnp.asarray(obs), jnp.asarray(sig), jnp.asarray(y),
-                       jnp.asarray(yhat), jnp.asarray(bg), True)
+                       jnp.asarray(f[:, :, 0]), jnp.asarray(f[:, :, 1]),
+                       jnp.asarray(f[:, :, 3:]), jnp.asarray(f[:, :, 2]),
+                       jnp.asarray(bg), True)
     got = made.fn(*made.args).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, np.asarray(want), rtol=ENSI_RTOL,
