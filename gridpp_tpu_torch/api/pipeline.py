@@ -821,14 +821,16 @@ class MultiEnsiPipeline(_EnsembleBase):
         if self.variant != "ebesc":
             self._check_field(background_corr, "background_corr")
             bgc = background_corr.reshape(self._n, e).contiguous()
-        pback = bg[self._obs_nn]  # (P, E)
         if self.variant == "utem":
+            count("cycle.utem")
+            with span("gridpp.cycle.table"):
+                tab = mops.utem_table(pobs, pratios, bg[self._obs_nn],
+                                      bgc[self._obs_nn])
             out, n_cond = mops.utem_serve_sweep(
-                bg, bgc, self._bratios,
-                mops.utem_table(pobs, pratios, pback, bgc[self._obs_nn]),
-                torch.isfinite(pobs), self._cand, self._s_cap, self.block,
-                self.allow)
+                bg, bgc, self._bratios, tab, torch.isfinite(pobs),
+                self._cand, self._s_cap, self.block, self.allow)
         else:
+            pback = bg[self._obs_nn]  # (P, E)
             ebe = bgc is not None
             out = mops.member_serve_sweep(
                 self.structure, self._field_keys, bg, self._bratios,

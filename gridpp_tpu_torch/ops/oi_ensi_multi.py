@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..tracing import count, span
 from .oi import _blocks, _gj_solve, _select_top
 from .oi_ensi import _finish, _mm, _mv, _reselect, _s_cap, _transform
 
@@ -265,18 +266,24 @@ def utem_serve_sweep(background, background_corr, bratios, tab, obs_ok,
     """Whole-grid utem cycle from a cached shortlist (gridpp_tpu
     make_utem_serve_sweep). The packed per-obs table is [obs, pratios,
     y_hat, y_anom(E), y_corr(E)]. Returns (analysis (N, E),
-    n_condition_failures, a device scalar)."""
+    n_condition_failures, a device scalar). Traced (tracing.py): each
+    block counts `sweep.blocks`, its re-selection is the span
+    `gridpp.cycle.select` and its table gather and update
+    `gridpp.cycle.update`."""
     sel, rho, valid = cand
     n, e = background.shape
     out = torch.empty_like(background)
     cond_bad = torch.empty(n, dtype=torch.bool, device=background.device)
     for rows in _blocks(n, block):
-        sel_valid, l_rho, g = _reselect(sel[rows], rho[rows], valid[rows],
-                                        obs_ok, s_cap)
-        ftab = tab[g]  # (B, S, W)
-        out[rows], cond_bad[rows] = _utem_core(
-            sel_valid, l_rho, ftab[:, :, 0], ftab[:, :, 1], ftab[:, :, 2],
-            ftab[:, :, 3:3 + e], ftab[:, :, 3 + e:3 + 2 * e],
-            background[rows], background_corr[rows], bratios[rows],
-            allow_extrapolation)
+        count("sweep.blocks")
+        with span("gridpp.cycle.select"):
+            sel_valid, l_rho, g = _reselect(sel[rows], rho[rows],
+                                            valid[rows], obs_ok, s_cap)
+        with span("gridpp.cycle.update"):
+            ftab = tab[g]  # (B, S, W)
+            out[rows], cond_bad[rows] = _utem_core(
+                sel_valid, l_rho, ftab[:, :, 0], ftab[:, :, 1],
+                ftab[:, :, 2], ftab[:, :, 3:3 + e],
+                ftab[:, :, 3 + e:3 + 2 * e], background[rows],
+                background_corr[rows], bratios[rows], allow_extrapolation)
     return out, cond_bad.sum()

@@ -10,7 +10,9 @@ the profiler off nothing is recorded and record_function is never entered;
 under the benchmark's schedule (one warm-up step, one active step) only the
 active step's cycles are; each run_device path counts its name once; a new
 profiler session replaces the record of the last; the record is bounded; a
-consumer's time between two analyses is in no span.
+consumer's time between two analyses is in no span. A served utem cycle
+(MultiEnsiPipeline at 40 x 40) opens its table, selection and update spans
+inside gridpp.cycle, and no other pipeline opens them.
 """
 import time
 
@@ -235,3 +237,71 @@ def test_a_slow_consumer_is_in_no_span():
     assert len(_spans("gridpp.serve.fetch")) == 4 and len(naps) == 4
     for name, _, _, t0, t1 in _spans():
         assert all(t1 <= a or b <= t0 for a, b in naps), name
+
+
+UTEM_SPANS = {"gridpp.cycle.table", "gridpp.cycle.select",
+              "gridpp.cycle.update"}
+
+
+def _served_cycles(kind, block=1 << 20):
+    """(a pipeline of kind at 40 x 40 with 30 stations, two host cycles
+    for its serve_stream): a flat Pipeline with static ratios, EnsiPipeline
+    with 3 members, or MultiEnsiPipeline ebe, ebesc or utem, whose
+    correlation ensemble is drawn apart from the background."""
+    grid, pts, bg, pobs = _problem((40, 40), 30, seed=2)
+    st = gt.BarnesStructure(30000.0)
+    rng = np.random.default_rng(3)
+    ratios = np.full(30, 0.2, np.float32)
+    if kind == "pipeline":
+        pipe = gt.Pipeline(grid, pts, st, max_points=5, ratios=ratios,
+                           device="cpu")
+        return pipe, [(bg + np.float32(i), pobs) for i in range(2)]
+    ens = [rng.normal(280, 5, (40, 40, 3)).astype(np.float32)
+           for _ in range(2)]
+    if kind == "ensi":
+        pipe = gt.EnsiPipeline(grid, pts, st, max_points=5, device="cpu")
+        return pipe, [(x, pobs, np.full(30, 1.5, np.float32)) for x in ens]
+    pipe = gt.MultiEnsiPipeline(grid, pts, st, variant=kind, max_points=5,
+                                block=block, device="cpu")
+    po = pobs if kind == "utem" else np.repeat(pobs[:, None], 3, axis=1)
+    corr = () if kind == "ebesc" else (
+        rng.normal(280, 5, (40, 40, 3)).astype(np.float32),)
+    return pipe, [(x, po, ratios) + corr for x in ens]
+
+
+def test_a_utem_cycle_traces_its_table_selection_and_update():
+    """Blocks of 512 rows: 4 a 1600-gridpoint cycle (3 of 512, 1 of 64).
+    Each served cycle opens gridpp.cycle.table once and gridpp.cycle.select
+    and gridpp.cycle.update once a block, each inside its gridpp.cycle."""
+    pipe, cycles = _served_cycles("utem", block=512)
+    _profiled(lambda prof: list(pipe.serve_stream(cycles)))
+    assert tracing.session().counts == {
+        "serve.cycles": 2, "cycle.multi": 2, "cycle.utem": 2,
+        "sweep.blocks": 8}
+    outer = {s[2]: s for s in _spans("gridpp.cycle")}
+    assert sorted(outer) == [0, 1]
+    for name, per_cycle in (("gridpp.cycle.table", 1),
+                            ("gridpp.cycle.select", 4),
+                            ("gridpp.cycle.update", 4)):
+        spans = _spans(name)
+        assert sorted(s[2] for s in spans) == [0] * per_cycle \
+            + [1] * per_cycle
+        for _, parent, c, t0, t1 in spans:
+            assert parent == "gridpp.cycle"
+            assert outer[c][3] <= t0 <= t1 <= outer[c][4]
+    # select and update alternate, block by block
+    inner = [s[0] for s in sorted(_spans(), key=lambda s: s[3])
+             if s[0] in UTEM_SPANS and s[2] == 0]
+    assert inner == ["gridpp.cycle.table"] + [
+        "gridpp.cycle.select", "gridpp.cycle.update"] * 4
+
+
+@pytest.mark.parametrize("kind", ["pipeline", "ensi", "ebe", "ebesc"])
+def test_other_cycles_trace_no_utem_span(kind):
+    pipe, cycles = _served_cycles(kind)
+    _profiled(lambda prof: list(pipe.serve_stream(cycles)))
+    counts = tracing.session().counts
+    assert counts["serve.cycles"] == 2
+    assert not {"cycle.utem", "sweep.blocks"} & set(counts)
+    assert not UTEM_SPANS & {s[0] for s in _spans()}
+    assert len(_spans("gridpp.cycle")) == 2
