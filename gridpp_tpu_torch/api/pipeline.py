@@ -25,14 +25,13 @@ every path runs eagerly and the guard branches on the host.
 """
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import torch
 
 from ..constants import Statistic
 from ..core.grid import Grid
 from ..core.points import Points
+from ..native import stage as host_stage
 from ..ops import graph
 from ..ops import oi_ensi_multi as mops
 from ..ops import oi_tiled as tiled_ops
@@ -79,9 +78,10 @@ def _as_device(device) -> torch.device:
 
 
 def _host_f32(arrays):
-    """numpy arrays -> f32 numpy arrays, and whether every value is finite
-    (checked on the host: no device round trip)."""
-    host = [np.asarray(a, np.float32) for a in arrays]
+    """numpy arrays -> f32 numpy arrays (native/stage.py's as_f32), and
+    whether every value is finite (checked on the host: no device round
+    trip)."""
+    host = host_stage.as_f32(arrays)
     return host, all(bool(np.isfinite(a).all()) for a in host)
 
 
@@ -141,8 +141,10 @@ def _serve_card(device, streams, run_one, cycles, n_up):
     the second, behind an event recorded after its compute, once cycle
     N + 1 is queued. The host waits on that copy's event alone and yields
     a copy of the pinned buffer, so a yielded array stays the caller's
-    while the buffer serves the next cycle. The host copies into and out of
-    the pinned buffers are torch's, on its intra-op threads."""
+    while the buffer serves the next cycle. A cycle's arrays go into the
+    pinned buffers by one host pass that also checks their finiteness
+    (native/stage.py, on torch's intra-op threads); the copy out of
+    the pinned output buffer is torch's."""
     compute = torch.cuda.current_stream(device)
     up, down = streams
     staged = [[], []]           # each set's pinned input buffers
@@ -169,7 +171,7 @@ def _serve_card(device, streams, run_one, cycles, n_up):
 
     for i, args in enumerate(cycles):
         with span("gridpp.serve.check", i):
-            host, ok = _host_f32(args[:n_up])
+            host = host_stage.as_f32(args[:n_up])
         s = i % 2
         with span("gridpp.serve.stage", i):
             if uploaded[s] is not None:
@@ -178,13 +180,7 @@ def _serve_card(device, streams, run_one, cycles, n_up):
             old = staged[s]
             staged[s] = [_pinned(old[j] if j < len(old) else None, a.shape,
                                  torch.float32) for j, a in enumerate(host)]
-            with warnings.catch_warnings():
-                # a is only read: torch warns of a read-only array all the
-                # same
-                warnings.filterwarnings("ignore", "The given NumPy array is "
-                                        "not writable")
-                for buf, a in zip(staged[s], host):
-                    buf.copy_(torch.from_numpy(a))
+            ok = host_stage.stage(host, staged[s])
             with torch.cuda.stream(up):
                 tensors = [buf.to(device, non_blocking=True)
                            for buf in staged[s]]

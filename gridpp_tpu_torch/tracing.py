@@ -22,9 +22,12 @@ with it off (a span or count that found the profiler off), and replaces the
 one before; `session()` returns the newest. Spans are opened from one
 thread at a time (the serving loop's).
 
-Span names (the work each holds): `gridpp.serve.check` (the host's
-finiteness check of a cycle's arrays), `gridpp.serve.stage` (their upload:
-pinned staging and the host-to-device enqueue), `gridpp.serve.stage.wait`
+Span names (the work each holds): `gridpp.serve.check` (on the CPU the
+host's finiteness check of a cycle's arrays; on a card their dtype and
+layout test and any conversion to contiguous float32),
+`gridpp.serve.stage` (their upload: pinned staging, which on a card is
+also the finiteness check, native/stage.py, and the host-to-device
+enqueue), `gridpp.serve.stage.wait`
 (the host waiting for a staging set's last upload), `gridpp.cycle`
 (`run_device`: path choice and the replay's launch or the eager cycle's
 enqueue), `gridpp.cycle.sync` (the host waiting for a value the device
@@ -40,7 +43,9 @@ update). Counts: `serve.cycles` (analyses yielded), `cycle.<path>` (one a
 `run_device` call: fast, general, resolve, flat, ensi, ensi_prefix, multi,
 and utem beside multi), `sweep.blocks` (a utem sweep's blocks),
 `graph.capture`, `graph.replay`, `host.sync` (each read under
-`gridpp.cycle.sync`).
+`gridpp.cycle.sync`), `serve.stage.fused` (arrays staged by the one pass
+that copies and checks) and `serve.stage.converted` (arrays converted to
+contiguous float32 before their staging or upload).
 """
 from __future__ import annotations
 

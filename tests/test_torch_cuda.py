@@ -822,11 +822,14 @@ def test_serve_stream_spans_on_card(dev):
     upload from their staging set's last use, every fetch for its
     download. Under a card trace the spans' device-timeline copies are
     user annotations, not device work. Cycles with a third of the obs
-    missing take the general path after one host sync each."""
+    missing take the general path after one host sync each. Each cycle's
+    two arrays are staged by the one host pass that copies and checks
+    (`serve.stage.fused`), none converted."""
     pipe, cycles = _streamed_pipe("pipeline", dev, _bench_cut())
     _, s = _traced(lambda: list(pipe.serve_stream(cycles)))
     assert s.counts == {"serve.cycles": 4, "cycle.fast": 4,
-                        "graph.capture": 1, "graph.replay": 3}
+                        "graph.capture": 1, "graph.replay": 3,
+                        "serve.stage.fused": 8}
     got = sorted((n, p, c) for n, p, c, _, _ in s.spans)
     want = sorted(
         [(n, None, c) for c in range(4) for n in (
@@ -841,7 +844,7 @@ def test_serve_stream_spans_on_card(dev):
 
     prof, s = _traced(lambda: list(pipe.serve_stream(cycles)), cuda=True)
     assert s.counts == {"serve.cycles": 4, "cycle.fast": 4,
-                        "graph.replay": 4}
+                        "graph.replay": 4, "serve.stage.fused": 8}
     ours = [e for e in prof.events() if e.name.startswith("gridpp.")]
     assert {e.name for e in ours} >= {n for n, *_ in s.spans}
     assert any(e.device_type == torch.autograd.DeviceType.CUDA
@@ -854,10 +857,31 @@ def test_serve_stream_spans_on_card(dev):
     _, s = _traced(lambda: list(pipe.serve_stream(gaps)))
     assert s.counts == {"serve.cycles": 4, "cycle.general": 4,
                         "host.sync": 4, "graph.capture": 1,
-                        "graph.replay": 3}
+                        "graph.replay": 3, "serve.stage.fused": 8}
     assert sorted((p, c) for n, p, c, _, _ in s.spans
                   if n == "gridpp.cycle.sync") == [
         ("gridpp.cycle", c) for c in range(4)]
+
+
+def test_ensi_serve_stream_nan_member_takes_general_path(dev):
+    """A NaN in one member value (not in pobs) of one served cycle: the
+    host pass's answer sends that cycle, and only it, down EnSI's
+    re-selecting path (cycle.ensi), and every cycle still equals the call
+    loop bit for bit."""
+    pipe, cycles = _streamed_pipe("ensi", dev, _bench_cut())
+    ens = cycles[2][0].copy()
+    ens[100, 37, 4] = np.nan
+    cycles[2] = (ens,) + cycles[2][1:]
+    streamed = []
+    _, s = _traced(lambda: streamed.extend(pipe.serve_stream(cycles)))
+    assert s.counts["serve.cycles"] == 4
+    assert s.counts["cycle.ensi_prefix"] == 3 and s.counts["cycle.ensi"] == 1
+    assert s.counts["serve.stage.fused"] == 12
+    assert "serve.stage.converted" not in s.counts
+    looped = [pipe(*c) for c in cycles]
+    assert len(streamed) == len(looped)
+    for got, want in zip(streamed, looped):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_ensi_serve_stream_counts_kernel_launches(dev):
