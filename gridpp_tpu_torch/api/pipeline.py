@@ -25,6 +25,9 @@ every path runs eagerly and the guard branches on the host.
 """
 from __future__ import annotations
 
+import weakref
+from collections import deque
+
 import numpy as np
 import torch
 
@@ -53,6 +56,7 @@ _GEOM_TYPES = {"tile_table": torch.int32, "local_idx": torch.int32,
 _WEIGHT_TYPES = {"local_s": torch.int32, "valid_s": torch.bool,
                  "weights": torch.float32, "a_scalar": torch.float32}
 _RING = 4   # pinned staging buffers of numpy pratios, used in turn
+_SPARE = 2  # released output arrays a pipeline keeps for later yields
 
 
 def _host_if(pred, body):
@@ -97,8 +101,8 @@ def _serve_stream(pipe, run_one, cycles, n_up=None):
     N + 1's upload while cycle N does (_serve_card). On the CPU the loop is
     the same without streams."""
     if pipe.device.type == "cuda":
-        return _serve_card(pipe.device, pipe._copy_streams(), run_one,
-                           cycles, n_up)
+        return _serve_card(pipe.device, pipe._copy_streams(),
+                           pipe._spare_outputs(), run_one, cycles, n_up)
     return _serve_plain(pipe, run_one, cycles, n_up)
 
 
@@ -132,7 +136,39 @@ def _pinned(buf, shape, dtype):
     return torch.empty(shape, dtype=dtype, pin_memory=True)
 
 
-def _serve_card(device, streams, run_one, cycles, n_up):
+class _Lease:
+    """The base of an array that _hand_out yields: it lends out a pooled
+    buffer's memory, which goes back to the pool once the lease, and so
+    the yield and every view of it, is gone."""
+    __slots__ = ("__array_interface__", "__weakref__")
+
+
+def _hand_out(spare, src):
+    """A numpy copy of the host tensor src, in a buffer from spare (a
+    deque of released buffers; one of another shape or type is dropped),
+    else in a fresh one. A buffer of 160 MB is above malloc's mmap
+    threshold, so a fresh one is mapped anew and faults in every page
+    during the copy; a released one is mapped already. The buffer joins
+    spare again once the yield and all its views are gone, so a yield
+    stays the caller's for as long as any view of it lives."""
+    while True:
+        try:
+            buf = spare.pop()
+        except IndexError:
+            buf = torch.empty(src.shape, dtype=src.dtype)
+            count("serve.fetch.fresh")
+            break
+        if buf.shape == src.shape and buf.dtype == src.dtype:
+            count("serve.fetch.recycled")
+            break
+    buf.copy_(src)
+    lease = _Lease()
+    lease.__array_interface__ = buf.numpy().__array_interface__
+    weakref.finalize(lease, spare.append, buf)
+    return np.asarray(lease)
+
+
+def _serve_card(device, streams, spare, run_one, cycles, n_up):
     """_serve_stream on a card. Compute runs on the caller's current
     stream. A cycle's arrays are staged into pinned buffers, two sets used
     in turn, so cycle N + 1 is staged while cycle N's upload may still read
@@ -140,11 +176,11 @@ def _serve_card(device, streams, run_one, cycles, n_up):
     compute stream waits on by an event. Cycle N's output is copied down on
     the second, behind an event recorded after its compute, once cycle
     N + 1 is queued. The host waits on that copy's event alone and yields
-    a copy of the pinned buffer, so a yielded array stays the caller's
-    while the buffer serves the next cycle. A cycle's arrays go into the
-    pinned buffers by one host pass that also checks their finiteness
-    (native/stage.py, on torch's intra-op threads); the copy out of
-    the pinned output buffer is torch's."""
+    a copy of the pinned buffer, made by torch into one of `spare`'s
+    released arrays where there is one (_hand_out), so a yielded array
+    stays the caller's while the buffer serves the next cycle. A cycle's
+    arrays go into the pinned buffers by one host pass that also checks
+    their finiteness (native/stage.py, on torch's intra-op threads)."""
     compute = torch.cuda.current_stream(device)
     up, down = streams
     staged = [[], []]           # each set's pinned input buffers
@@ -164,8 +200,7 @@ def _serve_card(device, streams, run_one, cycles, n_up):
                 copied = down.record_event()
             with span("gridpp.serve.fetch.wait"):
                 copied.synchronize()
-            res = torch.empty(fetched.shape, dtype=fetched.dtype).copy_(
-                fetched).numpy()
+            res = _hand_out(spare, fetched)
         count("serve.cycles")
         return res
 
@@ -241,6 +276,14 @@ class _OnDevice:
             self._streams = (torch.cuda.Stream(self.device),
                              torch.cuda.Stream(self.device))
         return self._streams
+
+    def _spare_outputs(self):
+        """serve_stream's released output arrays on the card (_hand_out),
+        kept once a pipeline, so that a call after a warm-up call reuses
+        the warm-up's."""
+        if getattr(self, "_spare", None) is None:
+            self._spare = deque(maxlen=_SPARE)
+        return self._spare
 
     def _upload(self, *arrays):
         """numpy arrays -> f32 tensors on this device, and whether every

@@ -33,11 +33,11 @@ enqueue), `gridpp.serve.stage.wait`
 enqueue), `gridpp.cycle.sync` (the host waiting for a value the device
 computes), `gridpp.cycle.capture` (a path's first call on a card: its eager
 run and graph capture), `gridpp.serve.fetch` (the download's enqueue and
-the copy out to a fresh array), `gridpp.serve.fetch.wait` (the host
-waiting for the download). On the utem path alone (MultiEnsiPipeline's
-`run_device` and ops/oi_ensi_multi.utem_serve_sweep), inside
-`gridpp.cycle`: `gridpp.cycle.table` (the two ensembles gathered at the
-obs and the packed per-obs table), `gridpp.cycle.select` (a block's
+the copy out to a released or fresh array), `gridpp.serve.fetch.wait`
+(the host waiting for the download). On the utem path alone
+(MultiEnsiPipeline's `run_device` and ops/oi_ensi_multi.utem_serve_sweep),
+inside `gridpp.cycle`: `gridpp.cycle.table` (the two ensembles gathered at
+the obs and the packed per-obs table), `gridpp.cycle.select` (a block's
 re-selection) and `gridpp.cycle.update` (a block's table gather and ETKF
 update). Counts: `serve.cycles` (analyses yielded), `cycle.<path>` (one a
 `run_device` call: fast, general, resolve, flat, ensi, ensi_prefix, multi,
@@ -45,7 +45,9 @@ and utem beside multi), `sweep.blocks` (a utem sweep's blocks),
 `graph.capture`, `graph.replay`, `host.sync` (each read under
 `gridpp.cycle.sync`), `serve.stage.fused` (arrays staged by the one pass
 that copies and checks) and `serve.stage.converted` (arrays converted to
-contiguous float32 before their staging or upload).
+contiguous float32 before their staging or upload), `serve.fetch.recycled`
+(analyses yielded in an array the caller had released) and
+`serve.fetch.fresh` (analyses yielded in a newly allocated array).
 """
 from __future__ import annotations
 

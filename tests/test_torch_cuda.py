@@ -801,6 +801,32 @@ def test_serve_stream_yield_outlives_later_cycles(dev, kind):
     assert len(list(stream)) == 1
 
 
+@pytest.mark.parametrize("kind", ["pipeline", "ensi"])
+def test_serve_stream_recycles_released_yields(dev, kind):
+    """A caller that drops each analysis once it has read it: over six
+    cycles every analysis still equals the call loop's bit for bit, and
+    the later ones are copied out into the arrays dropped before them
+    (`serve.fetch.recycled`)."""
+    pipe, cycles = _streamed_pipe(kind, dev, _bench_cut())
+    cycles += [(c[0] + np.float32(0.5),) + c[1:] for c in cycles[:2]]
+    looped = [pipe(*c) for c in cycles]
+    seen = []
+
+    def serve():
+        for got in pipe.serve_stream(cycles):
+            np.testing.assert_array_equal(got, looped[len(seen)])
+            seen.append(got.__array_interface__["data"][0])
+            del got
+
+    _, s = _traced(serve)
+    assert len(seen) == 6
+    assert s.counts["serve.cycles"] == 6
+    assert s.counts["serve.fetch.recycled"] >= 3
+    assert (s.counts["serve.fetch.recycled"]
+            + s.counts.get("serve.fetch.fresh", 0)) == 6
+    assert len(set(seen)) < len(seen)
+
+
 def _traced(fn, cuda=False):
     """fn() under a profiler session (host records, and the card's with
     cuda), after a record made with the profiler off so that the tracing
@@ -824,12 +850,15 @@ def test_serve_stream_spans_on_card(dev):
     user annotations, not device work. Cycles with a third of the obs
     missing take the general path after one host sync each. Each cycle's
     two arrays are staged by the one host pass that copies and checks
-    (`serve.stage.fused`), none converted."""
+    (`serve.stage.fused`), none converted. The fresh pipeline's four
+    analyses are copied out into new arrays (`serve.fetch.fresh`); each
+    later call, whose list of analyses is held whole, finds two of them
+    released (`serve.fetch.recycled`, the pool's cap)."""
     pipe, cycles = _streamed_pipe("pipeline", dev, _bench_cut())
     _, s = _traced(lambda: list(pipe.serve_stream(cycles)))
     assert s.counts == {"serve.cycles": 4, "cycle.fast": 4,
                         "graph.capture": 1, "graph.replay": 3,
-                        "serve.stage.fused": 8}
+                        "serve.stage.fused": 8, "serve.fetch.fresh": 4}
     got = sorted((n, p, c) for n, p, c, _, _ in s.spans)
     want = sorted(
         [(n, None, c) for c in range(4) for n in (
@@ -844,7 +873,8 @@ def test_serve_stream_spans_on_card(dev):
 
     prof, s = _traced(lambda: list(pipe.serve_stream(cycles)), cuda=True)
     assert s.counts == {"serve.cycles": 4, "cycle.fast": 4,
-                        "graph.replay": 4, "serve.stage.fused": 8}
+                        "graph.replay": 4, "serve.stage.fused": 8,
+                        "serve.fetch.recycled": 2, "serve.fetch.fresh": 2}
     ours = [e for e in prof.events() if e.name.startswith("gridpp.")]
     assert {e.name for e in ours} >= {n for n, *_ in s.spans}
     assert any(e.device_type == torch.autograd.DeviceType.CUDA
@@ -857,7 +887,8 @@ def test_serve_stream_spans_on_card(dev):
     _, s = _traced(lambda: list(pipe.serve_stream(gaps)))
     assert s.counts == {"serve.cycles": 4, "cycle.general": 4,
                         "host.sync": 4, "graph.capture": 1,
-                        "graph.replay": 3, "serve.stage.fused": 8}
+                        "graph.replay": 3, "serve.stage.fused": 8,
+                        "serve.fetch.recycled": 2, "serve.fetch.fresh": 2}
     assert sorted((p, c) for n, p, c, _, _ in s.spans
                   if n == "gridpp.cycle.sync") == [
         ("gridpp.cycle", c) for c in range(4)]
